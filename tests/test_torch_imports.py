@@ -1,0 +1,81 @@
+"""Import hygiene and device rules of the PyTorch port.
+
+The port (dexterity_tpu_torch/ and chip_smoke.py) never imports jax or the
+JAX package; its entry points place tensors on cuda unless the caller
+names a device, and raise when there is no card.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_files():
+  out = [os.path.join(_ROOT, 'chip_smoke.py')]
+  for base, _, files in os.walk(os.path.join(_ROOT, 'dexterity_tpu_torch')):
+    out += [os.path.join(base, f) for f in files if f.endswith('.py')]
+  return sorted(out)
+
+
+def _forbidden(name):
+  top = name.split('.')[0]
+  return top in ('jax', 'jaxlib', 'dexterity_tpu')
+
+
+def test_port_files_exist():
+  files = _port_files()
+  assert os.path.exists(files[0])
+  assert len(files) > 20
+
+
+@pytest.mark.parametrize('path', _port_files(),
+                         ids=lambda p: os.path.relpath(p, _ROOT))
+def test_no_jax_or_jax_package_imports(path):
+  tree = ast.parse(open(path).read(), path)
+  for node in ast.walk(tree):
+    if isinstance(node, ast.Import):
+      for alias in node.names:
+        assert not _forbidden(alias.name), (path, alias.name)
+    elif isinstance(node, ast.ImportFrom):
+      assert node.level or not _forbidden(node.module or ''), (
+          path, node.module)
+
+
+def test_importing_the_port_loads_no_jax():
+  code = ('import sys\n'
+          'import dexterity_tpu_torch.physics.step\n'
+          'import dexterity_tpu_torch.manipulation\n'
+          'import dexterity_tpu_torch.planners.common\n'
+          'bad = [m for m in sys.modules if m.split(".")[0] in '
+          '("jax", "dexterity_tpu")]\n'
+          'assert not bad, bad\n')
+  env = dict(os.environ, PYTHONPATH=_ROOT)
+  subprocess.run([sys.executable, '-c', code], check=True, cwd=_ROOT,
+                 env=env, timeout=120)
+
+
+def test_tf32_is_off():
+  import dexterity_tpu_torch  # noqa: F401
+  assert torch.backends.cuda.matmul.allow_tf32 is False
+  assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+  from dexterity_tpu_torch import manipulation
+  from dexterity_tpu_torch.core import types
+  from dexterity_tpu_torch.planners import common
+  monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+  task = manipulation.build_task('reorient', 'state_dense')
+  with pytest.raises(RuntimeError, match='no CUDA device'):
+    task.compile()
+  with pytest.raises(RuntimeError, match='no CUDA device'):
+    common.reduced_planning_model(task, 4, 6)
+  with pytest.raises(RuntimeError, match='no CUDA device'):
+    types.resolve_device(None)
+  assert types.resolve_device('cpu') == torch.device('cpu')

@@ -1,0 +1,125 @@
+"""Cholesky kernels of the PyTorch port (dexterity_tpu_torch.physics.
+linalg_cuda) against the JAX package's linalg_pallas.
+
+On the CPU the wrappers run their plain PyTorch versions; those are held
+to the JAX solutions at the tolerances of tests/test_linalg_pallas.py.
+The packed factor (K1's output, K2's input) exists only in the kernels'
+layout — JAX's CPU "factor" is the matrix itself — so it is held to a
+numpy implementation of the documented layout.  The CUDA kernels
+themselves are checked on the card by tests/test_torch_cuda.py and by
+chip_smoke.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dexterity_tpu.physics import linalg_pallas as LP
+from dexterity_tpu_torch.physics import linalg_cuda as LC
+
+
+def _spd(seed, batch, n):
+  rng = np.random.RandomState(seed)
+  a = rng.randn(*batch, n, n)
+  h = np.einsum('...ij,...kj->...ik', a, a) + 3 * np.eye(n)
+  g = rng.randn(*batch, n)
+  return h, g
+
+
+def _packed_factor_np(h):
+  """Documented packed layout: strict lower = L, diagonal = 1 / L_kk."""
+  n = h.shape[-1]
+  out = np.zeros_like(h)
+  for idx in np.ndindex(h.shape[:-2]):
+    low = np.linalg.cholesky(h[idx])
+    f = np.tril(low, -1)
+    f[np.arange(n), np.arange(n)] = 1.0 / np.diag(low)
+    out[idx] = f
+  return out
+
+
+def _t(x):
+  return torch.as_tensor(x, dtype=torch.float64)
+
+
+_SHAPES = [((7,), 10), ((3, 5), 8), ((4,), 30)]
+
+
+@pytest.mark.parametrize('batch,n', _SHAPES)
+def test_cholesky_solve_matches_jax(batch, n):
+  h, g = _spd(0, batch, n)
+  f = LP.cholesky_solve
+  for _ in batch:
+    f = jax.vmap(f)
+  ref = np.asarray(jax.jit(f)(jnp.asarray(h), jnp.asarray(g)))
+  got = LC.cholesky_solve(_t(h), _t(g)).numpy()
+  np.testing.assert_allclose(got, ref, rtol=1e-7, atol=1e-9)
+
+
+@pytest.mark.parametrize('batch,n', _SHAPES)
+def test_cholesky_solve_factor_matches_jax(batch, n):
+  h, g = _spd(1, batch, n)
+  f = LP.cholesky_solve_factor
+  for _ in batch:
+    f = jax.vmap(f)
+  ref_x, _ = jax.jit(f)(jnp.asarray(h), jnp.asarray(g))
+  x, fac = LC.cholesky_solve_factor(_t(h), _t(g))
+  np.testing.assert_allclose(x.numpy(), np.asarray(ref_x), rtol=1e-7,
+                             atol=1e-9)
+  # Lower triangle and diagonal of the packed factor (upper unspecified).
+  want = _packed_factor_np(h)
+  low = np.tril(np.ones((n, n), bool))
+  np.testing.assert_allclose(fac.numpy()[..., low], want[..., low],
+                             rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize('batch,n', _SHAPES)
+def test_cholesky_resolve_const_matches_jax(batch, n):
+  h, g = _spd(2, batch, n)
+  _, g2 = _spd(3, batch, n)
+  f = LP.cholesky_resolve_const
+  for _ in batch:
+    f = jax.vmap(f)
+  # JAX's CPU factor is the matrix itself; resolve refactors it.
+  ref = np.asarray(jax.jit(f)(jnp.asarray(h), jnp.asarray(g2)))
+  _, fac = LC.cholesky_solve_factor(_t(h), _t(g))
+  got = LC.cholesky_resolve_const(fac, _t(g2)).numpy()
+  np.testing.assert_allclose(got, ref, rtol=1e-7, atol=1e-9)
+  # The resolve reads only the documented layout: garbage in the upper
+  # triangle changes nothing.
+  upper = torch.triu(torch.full_like(fac, 1e6), 1)
+  got2 = LC.cholesky_resolve_const(fac + upper, _t(g2)).numpy()
+  np.testing.assert_array_equal(got2, got)
+
+
+def test_near_singular_is_finite():
+  """The pivot clamp rsqrt(max(a_kk, 1e-12)) keeps a rank-deficient
+  matrix finite, as on the TPU."""
+  rng = np.random.RandomState(4)
+  n = 12
+  v = rng.randn(3, n, 2)
+  h = np.einsum('bik,bjk->bij', v, v)               # rank 2
+  g = rng.randn(3, n)
+  for x in (LC.cholesky_solve(_t(h), _t(g)),
+            LC.cholesky_solve_factor(_t(h), _t(g))[0]):
+    assert torch.isfinite(x).all()
+
+
+def test_cpu_tensors_use_plain_versions():
+  """CPU tensors run the plain versions and launch nothing."""
+  LC.reset_launches()
+  h, g = _spd(5, (2,), 6)
+  x, fac = LC.cholesky_solve_factor(_t(h), _t(g))
+  LC.cholesky_resolve_const(fac, _t(g))
+  LC.cholesky_solve(_t(h), _t(g))
+  assert LC.launches == {'cholesky_solve_factor': 0,
+                         'cholesky_resolve_const': 0, 'cholesky_solve': 0}
+
+
+def test_float32_plain_matches_float64():
+  h, g = _spd(6, (16,), 30)
+  x32 = LC.cholesky_solve(_t(h).float(), _t(g).float()).double().numpy()
+  ref = np.linalg.solve(h, g[..., None])[..., 0]
+  np.testing.assert_allclose(x32, ref, rtol=1e-3, atol=1e-5)
