@@ -6,8 +6,9 @@
 Needs a CUDA device and the repository checkout beside this file; exits
 non-zero otherwise, and on any failed check.  Phases, one JSON line each:
 
-  0. probe: torch/CUDA versions, the card, the kernel build (nvcc, sm_90a).
-  1. main path: the ShadowHand reorient planning model (4 Newton iterations,
+  0. probe: torch/CUDA versions, the card, the kernel build (one nvcc per
+     csrc/*.cu source, all started together, sm_90a).
+  1. rollouts: the ShadowHand reorient planning model (4 Newton iterations,
      6 line-search steps, refactor every 2, 3 substeps, contact budget
      16/16, implicit damping, no self-collision) steps B = 1024 rollouts
      through 10 control steps of step_n_b; the launch counts of the Cholesky
@@ -16,14 +17,24 @@ non-zero otherwise, and on any failed check.  Phases, one JSON line each:
      on the CPU in float64.
   2. environment model: one control step (5 substeps, exact Newton, Euler
      damping solve, contact 64/64) at B = 256.
-  3. kernels: each Cholesky kernel against its plain PyTorch version and a
-     float64 reference, on seeded SPD matrices and on the Hessians the main
-     path built; timed (device time, torch.profiler) beside its plain
+  3. planner (the main path): PredictiveSampling.solve_batch at bench.py's
+     configuration (4 streams x 256 samples x 2 CEM iterations, horizon
+     10) from seeded starts and goals: solves/s, launches per solve, action
+     and return checks, and rollout returns held against the port on the
+     CPU in float64.
+  4. tree sweep: build_tree_sweep (K5 + K6) on the rollouts' states after
+     their first control step, against its plain version in float32 and
+     float64, qm factorable; timed beside step._precompute_planes.
+  5. cholesky_factor: the K4 + K2 entry points on the path's Hessians.
+  6. kernels: each Cholesky kernel against its plain version and a
+     float64 reference, on seeded SPD matrices and on the Hessians the
+     rollouts built; timed (device time, torch.profiler) beside its plain
      version, a library call and its bound.
   --profile adds host and device time by stage and device time by kernel
-  over one planning control step.
-Then the `kernels` line, the card's name and power limit, and as the last
-line {"ok": true, "device": {...}}.
+  over one planning control step, and the device busy time and idle share
+  over one solve_batch.
+Then the `kernels` line (K1-K6), the card's name and power limit, and as
+the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -45,19 +56,31 @@ B_PLAN = 1024
 H = 10
 B_ENV = 256
 SEED = 0
+# Planner: bench.py's throughput configuration (B_PLAN rollouts per CEM
+# iteration), timed over SOLVES calls after one warm-up call.
+STREAMS = 4
+SAMPLES = 256
+ITERATIONS = 2
+SOLVES = 5
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and FP32 non-tensor rate.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_F64_FLOPS = 34e12
 
+# name (launch counter), TPU kernel it replaces, source, path that runs it.
+_LP = 'dexterity_tpu/physics/linalg_pallas.py'
+_TP = 'dexterity_tpu/physics/tree_pallas.py'
+_CHOL = 'dexterity_tpu_torch/csrc/cholesky.cu'
+_TREE = 'dexterity_tpu_torch/csrc/tree_sweep.cu'
 KERNELS = [
-    # name, TPU kernel it replaces
-    ('cholesky_solve_factor', 'dexterity_tpu/physics/linalg_pallas.py:135'),
-    ('cholesky_resolve_const', 'dexterity_tpu/physics/linalg_pallas.py:291'),
-    ('cholesky_solve', 'dexterity_tpu/physics/linalg_pallas.py:74'),
+    ('cholesky_solve_factor', f'{_LP}:135', _CHOL, 'main_path'),
+    ('cholesky_resolve_const', f'{_LP}:291', _CHOL, 'main_path'),
+    ('cholesky_solve', f'{_LP}:74', _CHOL, 'environment_model'),
+    ('cholesky_factor', f'{_LP}:262', _CHOL, 'entry:cholesky_factor'),
+    ('tree_sweep_fk', f'{_TP}:239', _TREE, 'entry:build_tree_sweep'),
+    ('tree_sweep_dyn', f'{_TP}:449', _TREE, 'entry:build_tree_sweep'),
 ]
-SOURCE = 'dexterity_tpu_torch/csrc/cholesky.cu'
 
 
 def emit(obj):
@@ -67,6 +90,15 @@ def emit(obj):
 def check(cond, what):
   if not cond:
     raise AssertionError(what)
+
+
+def reset_counts(pkg):
+  pkg['linalg_cuda'].reset_launches()
+  pkg['tree_cuda'].reset_launches()
+
+
+def read_counts(pkg):
+  return {**pkg['linalg_cuda'].launches, **pkg['tree_cuda'].launches}
 
 
 def nvidia_smi_line():
@@ -116,20 +148,23 @@ def controls(torch, model, steps, batch, gen, band=0.3):
 # ---------------------------------------------------------------------------
 
 
-def phase_probe(torch, linalg_cuda, smi):
+def phase_probe(torch, pkg, smi):
+  cuda_build = pkg['cuda_build']
   t0 = time.perf_counter()
-  linalg_cuda.build()
+  cuda_build.build_all()
+  pkg['linalg_cuda'].build()
+  pkg['tree_cuda'].build()
   build_s = time.perf_counter() - t0
-  log = linalg_cuda.build_info.get('log', '')
-  ptxas = [ln.strip() for ln in log.splitlines()
-           if 'registers' in ln or 'spill' in ln][:12]
+  ptxas = {name: [ln.strip() for ln in log.splitlines()
+                  if 'registers' in ln or 'spill' in ln][:12]
+           for name, log in cuda_build.build_info.get('log', {}).items()}
   emit({'phase': 'probe', 'torch': torch.__version__,
         'cuda': torch.version.cuda, 'python': sys.version.split()[0],
         'device': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count(), 'nvidia_smi': smi,
         'kernel_build_s': build_s,
-        'nvcc_s': linalg_cuda.build_info.get('seconds'),
-        'ptxas': ptxas})
+        'nvcc_parallel_s': cuda_build.build_info.get('seconds'),
+        'sources': sorted(cuda_build.sources()), 'ptxas': ptxas})
 
 
 def run_rollouts(torch, step, model, n, data, ctrls):
@@ -145,7 +180,7 @@ def run_rollouts(torch, step, model, n, data, ctrls):
   return data, first
 
 
-def phase_main_path(torch, pkg):
+def phase_rollouts(torch, pkg):
   types, step, linalg_cuda, primitives, common, manip = (
       pkg['types'], pkg['step'], pkg['linalg_cuda'], pkg['primitives'],
       pkg['common'], pkg['manipulation'])
@@ -179,12 +214,12 @@ def phase_main_path(torch, pkg):
   torch.cuda.synchronize()
   linalg_cuda.cholesky_solve_factor = capture_k1
   try:
-    linalg_cuda.reset_launches()
+    reset_counts(pkg)
     t0 = time.perf_counter()
     final, first = run_rollouts(torch, step, model, n, data0, ctrl_dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(linalg_cuda.launches)
+    launches = read_counts(pkg)
   finally:
     linalg_cuda.cholesky_solve_factor = real_k1
 
@@ -192,7 +227,8 @@ def phase_main_path(torch, pkg):
         f'K1 launches {launches}')
   check(launches['cholesky_resolve_const'] == H * n * 2,
         f'K2 launches {launches}')
-  check(launches['cholesky_solve'] == 0, f'K3 launches {launches}')
+  check(launches['cholesky_solve'] == 0 and launches['cholesky_factor'] == 0
+        and launches['tree_sweep_fk'] == 0, f'launches {launches}')
   finite = bool(torch.isfinite(final.qpos).all() and
                 torch.isfinite(final.qvel).all())
   check(finite, 'non-finite state after the rollouts')
@@ -209,8 +245,9 @@ def phase_main_path(torch, pkg):
   # First control step of 8 rollouts against the port on the CPU, float64.
   # Tolerance: float32 against float64 over 3 substeps of contact dynamics.
   # The Newton step carries float32 rounding times the Hessian's condition
-  # (~1e5 on this path), ~6e-3 relative in qacc; over h = 6.7 ms that is
-  # qvel to 1e-2 and qpos to 1e-4.
+  # (~1e5 on this path), ~6e-3 relative in qacc.  The control step is
+  # 25 ms, so each of the 3 planning substeps is h = 8.33 ms: qvel to 1e-2
+  # and qpos to 1e-4.
   cpu_model, _ = common.reduced_planning_model(
       task, device='cpu', dtype=torch.float64, **PLAN)
   k = 8
@@ -221,7 +258,7 @@ def phase_main_path(torch, pkg):
   check(err_q < 1e-4 and err_v < 1e-2,
         f'card vs CPU float64: qpos {err_q}, qvel {err_v}')
 
-  emit({'phase': 'main_path', 'model': 'reorient.state_dense planning',
+  emit({'phase': 'rollouts', 'model': 'reorient.state_dense planning',
         'batch': B_PLAN, 'control_steps': H, 'substeps': n,
         'launches': launches, 'finite': finite,
         'rollouts_in_contact': in_contact,
@@ -229,11 +266,12 @@ def phase_main_path(torch, pkg):
         'wall_s_per_rollout_batch': wall,
         'rollout_substeps_per_s': B_PLAN * H * n / wall,
         'npair': model.npair, 'nv': model.nv})
-  return dict(launches=launches, hessians=captured, model=model, task=task)
+  return dict(launches=launches, hessians=captured, model=model, task=task,
+              first=first)
 
 
 def phase_env(torch, pkg, task):
-  types, step, linalg_cuda = pkg['types'], pkg['step'], pkg['linalg_cuda']
+  types, step = pkg['types'], pkg['step']
   model = task.compile(device='cuda')
   n = task.n_substeps
   check(n == 5 and model.opt.solver_refactor_every == 1 and
@@ -247,12 +285,12 @@ def phase_env(torch, pkg, task):
       ctrl=ctrl.to(model.device, model.dtype))
   step.step_n_b(model, data, 1, refresh='none')        # warm-up
   torch.cuda.synchronize()
-  linalg_cuda.reset_launches()
+  reset_counts(pkg)
   t0 = time.perf_counter()
   out = step.step_n_b(model, data, n, refresh='none')
   torch.cuda.synchronize()
   wall = time.perf_counter() - t0
-  launches = dict(linalg_cuda.launches)
+  launches = read_counts(pkg)
   expect = n * (model.opt.solver_iterations + 1)
   check(launches['cholesky_solve'] == expect, f'K3 launches {launches}')
   check(launches['cholesky_solve_factor'] == 0 and
@@ -309,16 +347,48 @@ def _bound(b, n, elem, kind):
   elif kind == 'resolve':
     nbytes = mat + vec + vec
     fmas = b * n * n
+  elif kind == 'factor':
+    nbytes = mat + mat
+    fmas = b * n ** 3 / 3
   else:
     nbytes = mat + vec + vec
     fmas = b * (n ** 3 / 3 + n * n)
+  return _roofline(nbytes, 2 * fmas, elem)
+
+
+def _roofline(nbytes, flops, elem):
   peak = PEAK_F32_FLOPS if elem == 4 else PEAK_F64_FLOPS
   t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-  t_ops = 2 * fmas / peak * 1e3
+  t_ops = flops / peak * 1e3
   return (max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations')
 
 
-def phase_kernels(torch, pkg, main, env_launches, smi):
+def _tree_bounds(tc, model, b, elem):
+  """(K5, K6) bounds: rows read and written once; flops counted from the
+  kernels' arithmetic per item (rounded up)."""
+  nb, nv, nq, ng = model.nbody, model.nv, model.nq, model.ngeom
+  nt, nm = model.ntendon, model.nmocap
+  fk_rows = (nq + nv + 7 * nm) + (10 * nb + 6 * nv + 12 * ng + 10 * nb
+                                  + 2 * nt)
+  fk_flops = b * (nb * (120 + 150) + nv * 60 + ng * 90 + nt * 2 * (nq + nv))
+  # Entries of the CRB pattern: the length of each dof's ancestor walk.
+  parent = tc._dof_parent(model)
+  pattern = 0
+  for w in range(nv):
+    v = w
+    while v >= 0:
+      pattern += 1
+      v = parent[v]
+  dyn_rows = (6 * nv + 10 * nb + nv) + (nv * nv + nv)
+  dyn_flops = b * (10 * nb + nv * 36 + pattern * 12 + nv * (12 + 40)
+                   + nb * (12 + 72 + 30 + 6 + 6) + nv * 12)
+  return (_roofline(fk_rows * b * elem, fk_flops, elem),
+          _roofline(dyn_rows * b * elem, dyn_flops, elem))
+
+
+def phase_kernels(torch, pkg, main):
+  """K1-K4 against their plain versions and float64 on seeded and path
+  Hessians; their timing rows."""
   lc = pkg['linalg_cuda']
   dev = main['model'].device
   gen = torch.Generator().manual_seed(SEED + 2)
@@ -331,8 +401,9 @@ def phase_kernels(torch, pkg, main, env_launches, smi):
   check(sets['path_hessians'][0].shape == (B_PLAN, n, n),
         'captured Hessians')
   low = torch.tril(torch.ones(n, n, dtype=torch.bool, device=dev))
-  rows, checks = [], {}
-  for name, replaces in KERNELS:
+  rows, checks = {}, {}
+  for name in ('cholesky_solve_factor', 'cholesky_resolve_const',
+               'cholesky_solve', 'cholesky_factor'):
     errs = {}
     for set_name, (h, g) in sets.items():
       h64d, g64d = h.double(), g.double()
@@ -343,9 +414,16 @@ def phase_kernels(torch, pkg, main, env_launches, smi):
       cond = (ev[:, -1] / ev[:, 0].clamp_min(1e-300)).max().item()
       scale = x_ref.abs().max().item()
       tol = max(1e-4, 100 * cond * 6e-8) * scale
-      if name == 'cholesky_solve_factor':
-        x, fac = lc.cholesky_solve_factor(h, g)
-        x_p, fac_p = lc.solve_factor_plain(h, g)
+      if name in ('cholesky_solve_factor', 'cholesky_factor'):
+        if name == 'cholesky_solve_factor':
+          x, fac = lc.cholesky_solve_factor(h, g)
+          x_p, fac_p = lc.solve_factor_plain(h, g)
+        else:
+          # K4, and the K4 + K2 pair's solution.
+          fac = lc.cholesky_factor(h)
+          fac_p = lc.factor_plain(h)
+          x = lc.cholesky_resolve(fac, g)
+          x_p = lc.solve_plain(h, g)
         fac_err = (fac - fac_p)[:, low].abs().max().item()
         fac_tol = 1e-4 * fac_p[:, low].abs().max().item()
         check(fac_err <= fac_tol, f'{name} factor {set_name}: {fac_err}')
@@ -390,6 +468,11 @@ def phase_kernels(torch, pkg, main, env_launches, smi):
       ll = torch.linalg.cholesky_ex(h)[0]
       lib = lambda: torch.cholesky_solve(g3, ll)
       kind = 'resolve'
+    elif name == 'cholesky_factor':
+      fn = lambda: lc.cholesky_factor(h)
+      plain = lambda: lc.factor_plain(h)
+      lib = lambda: torch.linalg.cholesky_ex(h)
+      kind = 'factor'
     else:
       fn = lambda: lc.cholesky_solve(h, g)
       plain = lambda: lc.solve_plain(h, g)
@@ -398,23 +481,230 @@ def phase_kernels(torch, pkg, main, env_launches, smi):
     # The library yardstick uses cholesky_ex, which does not synchronise to
     # check for failure (torch.linalg.cholesky does).
     ms = _device_ms(torch, fn, 100)
-    plain_ms = _device_ms(torch, plain, 5)
-    lib_ms = _device_ms(torch, lib, 50)
-    call_ms = _call_ms(torch, fn, 100)
     bound_ms, bound_by = _bound(B_PLAN, n, 4, kind)
-    path_launches = (env_launches[name] if name == 'cholesky_solve'
-                     else main['launches'][name])
-    rows.append({
-        'name': name, 'route': 'cuda', 'source': SOURCE,
-        'replaces': replaces, 'launches': path_launches,
-        'path': ('environment_model' if name == 'cholesky_solve'
-                 else 'main_path'),
+    rows[name] = {
         'max_abs_err': max(checks[name][s] for s in sets), 'ms': ms,
-        'kernel_ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
-        'bound_by': bound_by, 'library_ms': lib_ms, 'call_ms': call_ms,
-        'shape': [B_PLAN, n, n], 'dtype': 'float32', 'card': smi})
+        'kernel_ms': ms, 'plain_ms': _device_ms(torch, plain, 5),
+        'bound_ms': bound_ms, 'bound_by': bound_by,
+        'library_ms': _device_ms(torch, lib, 50),
+        'call_ms': _call_ms(torch, fn, 100), 'shape': [B_PLAN, n, n],
+        'dtype': 'float32'}
   emit({'phase': 'kernel_checks', 'errors': checks})
   return rows
+
+
+def _tree_inputs(torch, data, dtype):
+  """Batch-minor tree-sweep inputs from a batch-leading Data; mocap rows
+  component-major (row c * nmocap + m)."""
+  qpos = data.qpos.T.to(dtype).contiguous()
+  qvel = data.qvel.T.to(dtype).contiguous()
+  mp = data.mocap_pos.permute(2, 1, 0).reshape(-1, qpos.shape[1])
+  mq = data.mocap_quat.permute(2, 1, 0).reshape(-1, qpos.shape[1])
+  return [qpos, qvel, mp.to(dtype).contiguous(), mq.to(dtype).contiguous()]
+
+
+def phase_tree_sweep(torch, pkg, main):
+  """build_tree_sweep (K5 + K6) on the rollouts' states after their first
+  control step: counted entry-point run, checks, timings."""
+  tc, step, common = pkg['tree_cuda'], pkg['step'], pkg['common']
+  model = main['model']
+  nv, b = model.nv, B_PLAN
+  ins = _tree_inputs(torch, main['first'], model.dtype)
+  fn = tc.build_tree_sweep(model, B=b)
+  fn(*ins)                                            # warm-up
+  torch.cuda.synchronize()
+  reset_counts(pkg)
+  out = fn(*ins)
+  torch.cuda.synchronize()
+  launches = read_counts(pkg)
+  check(launches['tree_sweep_fk'] == 1 and launches['tree_sweep_dyn'] == 1
+        and sum(launches.values()) == 2, f'tree sweep launches {launches}')
+
+  # Float32 against the plain version on the card, per output, relative
+  # to the output's max-abs: float32 rounding (6e-8) along a 6-deep body
+  # chain and sums over 33 bodies stays under 1e-5; limit 1e-4.
+  ref = tc.tree_sweep_plain(model, *ins)
+  errs = {}
+  for key, want in ref.items():
+    err = (out[key] - want).abs().max().item()
+    scale = max(want.abs().max().item(), 1.0)
+    check(bool(torch.isfinite(out[key]).all()), f'{key} not finite')
+    check(err <= 1e-4 * scale, f'tree sweep {key}: {err} > 1e-4 * {scale}')
+    errs[key] = err / scale
+  # Float64 copy of 64 rollouts: both sides compute the same arithmetic in
+  # float64, limit 1e-10 relative.
+  model64, _ = common.reduced_planning_model(
+      main['task'], device='cuda', dtype=torch.float64, **PLAN)
+  ins64 = [x[:, :64].double().contiguous() for x in ins]
+  out64 = tc.build_tree_sweep(model64)(*ins64)
+  ref64 = tc.tree_sweep_plain(model64, *ins64)
+  errs64 = {}
+  for key, want in ref64.items():
+    err = (out64[key] - want).abs().max().item()
+    scale = max(want.abs().max().item(), 1.0)
+    check(err <= 1e-10 * scale, f'tree sweep f64 {key}: {err}')
+    errs64[key] = err / scale
+  # The kernel's joint-space inertia factors (float64 copy).
+  qm = out['qm'].double().reshape(nv, nv, b).permute(2, 0, 1)
+  info = torch.linalg.cholesky_ex(qm)[1]
+  check(int((info != 0).sum()) == 0, 'kernel qm does not factor')
+
+  fk = tc.tree_fk(model, *ins)
+  body10 = fk['body10']
+  pre_args = (ins[0], ins[1],
+              ins[2].reshape(3, model.nmocap, b).transpose(0, 1),
+              ins[3].reshape(4, model.nmocap, b).transpose(0, 1))
+  timing = {
+      'tree_sweep_fk': dict(
+          kernel_ms=_device_ms(torch, lambda: tc.tree_fk(model, *ins), 50),
+          plain_ms=_device_ms(torch, lambda: tc.fk_plain(model, *ins), 5),
+          call_ms=_call_ms(torch, lambda: tc.tree_fk(model, *ins), 50)),
+      'tree_sweep_dyn': dict(
+          kernel_ms=_device_ms(torch, lambda: tc.tree_dyn(
+              model, fk['cdof'], body10, ins[1]), 50),
+          plain_ms=_device_ms(torch, lambda: tc.dyn_plain(
+              model, fk['cdof'], body10, ins[1]), 5),
+          call_ms=_call_ms(torch, lambda: tc.tree_dyn(
+              model, fk['cdof'], body10, ins[1]), 50))}
+  sweep_call_ms = _call_ms(torch, lambda: fn(*ins), 50)
+  planes = dict(
+      device_ms=_device_ms(torch, lambda: step._precompute_planes(
+          model, *pre_args), 5),
+      call_ms=_call_ms(torch, lambda: step._precompute_planes(
+          model, *pre_args), 5))
+  bounds = _tree_bounds(tc, model, b, 4)
+  rows = {}
+  for (name, t), (bound_ms, bound_by) in zip(timing.items(), bounds):
+    rows[name] = {
+        'max_abs_err': max(errs[k] for k in (
+            ('qm', 'qfrc_bias') if name == 'tree_sweep_dyn' else
+            ('xpos', 'xquat', 'cdof', 'gpos', 'gmat', 'xipos', 'ten_length',
+             'ten_velocity'))),
+        'ms': t['kernel_ms'], **t, 'bound_ms': bound_ms,
+        'bound_by': bound_by, 'library_ms': None,
+        'shape': {'nbody': model.nbody, 'nv': nv, 'ngeom': model.ngeom,
+                  'B': b}, 'dtype': 'float32'}
+  emit({'phase': 'tree_sweep', 'batch': b, 'launches': launches,
+        'max_rel_err_f32': errs, 'max_rel_err_f64_64_rollouts': errs64,
+        'qm_factors': True, 'kernels': timing,
+        'sweep_call_ms': sweep_call_ms,
+        'precompute_planes': planes})
+  return launches, rows
+
+
+def phase_factor_entry(torch, pkg, main):
+  """The cholesky_factor / cholesky_resolve entry points (K4 + K2) on the
+  rollouts' first Hessians: counted run and its backward error."""
+  lc = pkg['linalg_cuda']
+  h, g = main['hessians']['h'], main['hessians']['g']
+  lc.cholesky_resolve(lc.cholesky_factor(h), g)       # warm-up
+  torch.cuda.synchronize()
+  reset_counts(pkg)
+  x = lc.cholesky_resolve(lc.cholesky_factor(h), g)
+  torch.cuda.synchronize()
+  launches = read_counts(pkg)
+  check(launches['cholesky_factor'] == 1 and
+        launches['cholesky_resolve_const'] == 1 and
+        sum(launches.values()) == 2, f'factor entry launches {launches}')
+  h64, x64, g64 = h.double(), x.double(), g.double()
+  n = h.shape[-1]
+  res = (h64 @ x64[..., None])[..., 0] - g64
+  bwd = (res.abs().amax(-1) / (n * h64.abs().amax((-2, -1))
+                               * x64.abs().amax(-1)
+                               + g64.abs().amax(-1))).max().item()
+  check(bwd <= 1e-4, f'K4 + K2 backward error {bwd}')
+  emit({'phase': 'cholesky_factor', 'launches': launches,
+        'backward_error': bwd, 'shape': list(h.shape)})
+  return launches
+
+
+def phase_planner(torch, pkg):
+  """PredictiveSampling.solve_batch at bench.py's configuration."""
+  ps, types, manip = pkg['ps'], pkg['types'], pkg['manipulation']
+  po = pkg['prop_orientation']
+  task = manip.build_task('reorient', 'state_dense')
+  cfg = ps.PredictiveSamplingConfig(
+      horizon=H, num_samples=SAMPLES, iterations=ITERATIONS,
+      solver_iterations=PLAN['solver_iterations'],
+      ls_iterations=PLAN['ls_iterations'],
+      solver_refactor_every=PLAN['solver_refactor_every'],
+      plan_substeps=PLAN['plan_substeps'],
+      plan_midphase_cap=PLAN['plan_midphase_cap'],
+      plan_contact_top_k=PLAN['plan_contact_top_k'],
+      plan_implicit_damping=PLAN['plan_implicit_damping'],
+      plan_self_collision=PLAN['plan_self_collision'])
+  planner = ps.PredictiveSampling(task, cfg)
+  model = planner.model
+  dev, dtype = model.device, model.dtype
+  check(dev.type == 'cuda' and dtype == torch.float32, 'planner device')
+  gen = torch.Generator().manual_seed(SEED + 4)
+  qpos = start_states(torch, types, model, STREAMS, gen)
+  goals64 = po.uniform_quaternion(gen, (STREAMS,), torch.float64)
+  data_b = types.make_data(model, (STREAMS,)).replace(
+      qpos=qpos.to(dev, dtype))
+  goals = goals64.to(dev, dtype)
+  pgen = torch.Generator(device=dev).manual_seed(SEED)
+  pst = planner.init_state(streams=STREAMS)
+  t0 = time.perf_counter()
+  actions, pst = planner.solve_batch(data_b, goals, pst, pgen)  # warm-up
+  torch.cuda.synchronize()
+  warm_s = time.perf_counter() - t0
+
+  reset_counts(pkg)
+  walls = []
+  for _ in range(SOLVES):
+    t0 = time.perf_counter()
+    actions, pst = planner.solve_batch(data_b, goals, pst, pgen)
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter() - t0)
+  launches = read_counts(pkg)
+  per_call = {k: v / SOLVES for k, v in launches.items()}
+  per_solve = ITERATIONS * H * planner.n_plan_substeps * 2
+  check(per_call['cholesky_solve_factor'] == per_solve and
+        per_call['cholesky_resolve_const'] == per_solve,
+        f'K1/K2 launches per solve {per_call}')
+  check(launches['cholesky_solve'] == 0 and launches['cholesky_factor'] == 0
+        and launches['tree_sweep_fk'] == 0 and
+        launches['tree_sweep_dyn'] == 0, f'planner launches {launches}')
+  lo, hi = planner._lo, planner._hi
+  check(actions.shape == (STREAMS, planner.nu), 'action shape')
+  check(bool(torch.isfinite(actions).all()), 'non-finite actions')
+  check(bool(((actions >= lo) & (actions <= hi)).all()), 'actions off range')
+  check(bool(torch.isfinite(pst.best_return).all()), 'non-finite returns')
+  check(bool((pst.nominal[:, -1] == pst.nominal[:, -2]).all()),
+        'nominal not shifted')
+
+  # rollout_returns_flat of 8 candidates over 2 control steps against the
+  # port on the CPU in float64.  Limit 1e-3 relative to the largest
+  # return: float32 rounding times the Newton Hessian's condition (~1e5)
+  # gives ~6e-3 relative in qacc per substep, ~1e-4 in qpos after 6
+  # substeps of 8.33 ms, and the returns are smooth in the cube's pose.
+  cpu = ps.PredictiveSampling(task, cfg, device='cpu', dtype=torch.float64)
+  k, steps = 8, 2
+  stream = torch.arange(k) % STREAMS
+  u = torch.rand(k, steps, planner.nu, generator=gen, dtype=torch.float64)
+  acts = cpu._lo + (cpu._hi - cpu._lo) * u
+  d_card = types.make_data(model, (k,)).replace(
+      qpos=qpos[stream].to(dev, dtype))
+  d_cpu = types.make_data(cpu.model, (k,)).replace(qpos=qpos[stream].clone())
+  r_card = planner.rollout_returns_flat(d_card, goals[stream.to(dev)],
+                                        acts.to(dev, dtype))
+  r_cpu = cpu.rollout_returns_flat(d_cpu, goals64[stream], acts)
+  rel = ((r_card.double().cpu() - r_cpu).abs().max()
+         / r_cpu.abs().max().clamp_min(1.0)).item()
+  check(rel <= 1e-3, f'planner returns vs CPU float64: {rel}')
+
+  wall = sum(walls)
+  emit({'phase': 'planner', 'main_path': True,
+        'config': {'streams': STREAMS, 'samples': SAMPLES,
+                   'iterations': ITERATIONS, 'horizon': H, **PLAN},
+        'solves_per_s': STREAMS * SOLVES / wall,
+        'wall_s_per_call': walls, 'warmup_s': warm_s,
+        'launches_per_call': per_call, 'best_return':
+        pst.best_return.tolist(), 'returns_vs_cpu_f64_rel': rel,
+        'rollouts_per_call': STREAMS * SAMPLES * ITERATIONS})
+  return dict(launches=launches, planner=planner, data=data_b, goals=goals,
+              pgen=pgen, pstate=pst)
 
 
 # Stages of one substep, as step_n_b reaches them through module attributes.
@@ -487,10 +777,32 @@ def phase_profile(torch, pkg, main):
                         for k in kern[:12]]})
 
 
+def phase_profile_solve(torch, planner_out):
+  """Device busy time and idle share over one solve_batch."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+  p = planner_out
+  planner = p['planner']
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    planner.solve_batch(p['data'], p['goals'], p['pstate'], p['pgen'])
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+  kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+  busy_us = sum(e.self_device_time_total for e in kern)
+  check(busy_us > 0, 'the profiler saw no device time')
+  emit({'phase': 'profile_solve',
+        'window': f'one solve_batch, {STREAMS} x {SAMPLES} x {ITERATIONS}',
+        'wall_ms': wall_ms, 'device_busy_ms': busy_us / 1e3,
+        'device_idle_share': max(0.0, 1 - busy_us / 1e3 / wall_ms),
+        'kernel_launches': sum(e.count for e in kern)})
+
+
 def main():
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument('--profile', action='store_true',
-                      help='also profile one planning control step')
+                      help='also profile one planning control step and one '
+                           'solve_batch')
   args = parser.parse_args()
 
   import torch
@@ -502,22 +814,43 @@ def main():
   import dexterity_tpu_torch  # noqa: F401  (TF32 off)
   from dexterity_tpu_torch import manipulation
   from dexterity_tpu_torch.core import types
-  from dexterity_tpu_torch.physics import constraint, linalg_cuda, smooth, step
+  from dexterity_tpu_torch.manipulation.goals import prop_orientation
+  from dexterity_tpu_torch.physics import (constraint, cuda_build, linalg_cuda,
+                                           smooth, step, tree_cuda)
   from dexterity_tpu_torch.physics.collision import primitives
   from dexterity_tpu_torch.planners import common
+  from dexterity_tpu_torch.planners import predictive_sampling as ps
   pkg = dict(types=types, step=step, linalg_cuda=linalg_cuda,
+             tree_cuda=tree_cuda, cuda_build=cuda_build,
              primitives=primitives, common=common, manipulation=manipulation,
-             smooth=smooth, constraint=constraint)
+             smooth=smooth, constraint=constraint, ps=ps,
+             prop_orientation=prop_orientation)
 
   smi = nvidia_smi_line()
-  phase_probe(torch, linalg_cuda, smi)
-  main_out = phase_main_path(torch, pkg)
+  phase_probe(torch, pkg, smi)
+  main_out = phase_rollouts(torch, pkg)
   env_launches = phase_env(torch, pkg, main_out['task'])
-  rows = phase_kernels(torch, pkg, main_out, env_launches, smi)
+  planner_out = phase_planner(torch, pkg)
+  tree_launches, tree_rows = phase_tree_sweep(torch, pkg, main_out)
+  factor_launches = phase_factor_entry(torch, pkg, main_out)
+  rows = phase_kernels(torch, pkg, main_out)
+  rows.update(tree_rows)
+  path_launches = {'main_path': planner_out['launches'],
+                   'environment_model': env_launches,
+                   'entry:cholesky_factor': factor_launches,
+                   'entry:build_tree_sweep': tree_launches}
   if args.profile:
     phase_profile(torch, pkg, main_out)
-  emit({'kernels': rows, 'card': smi})
+    phase_profile_solve(torch, planner_out)
+  line = []
+  for name, replaces, source, path in KERNELS:
+    launches = path_launches[path][name]
+    check(launches > 0, f'{name} was not launched on {path}')
+    line.append({'name': name, 'route': 'cuda', 'source': source,
+                 'replaces': replaces, 'path': path, 'launches': launches,
+                 **rows[name], 'card': smi})
   print(smi, flush=True)
+  emit({'kernels': line})
   emit({'ok': True, 'device': {'platform': 'gpu',
                                'kind': torch.cuda.get_device_name(0),
                                'count': torch.cuda.device_count()}})

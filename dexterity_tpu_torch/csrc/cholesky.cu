@@ -3,7 +3,9 @@
 // Port of dexterity_tpu/physics/linalg_pallas.py:
 //   MODE_SOLVE        <- _kernel               (cholesky_solve)
 //   MODE_SOLVE_FACTOR <- _solve_factor_kernel  (cholesky_solve_factor)
-//   MODE_RESOLVE      <- _resolve_kernel       (cholesky_resolve_const)
+//   MODE_RESOLVE      <- _resolve_kernel       (cholesky_resolve_const,
+//                                               cholesky_resolve)
+//   MODE_FACTOR       <- _factor_kernel        (cholesky_factor)
 //
 // Design: one warp owns one (n, n) matrix, kept in shared memory with an
 // odd row stride (no bank conflicts on column walks).  Lane l owns rows
@@ -33,6 +35,7 @@ constexpr int kWarp = 32;
 constexpr int MODE_SOLVE = 0;
 constexpr int MODE_SOLVE_FACTOR = 1;
 constexpr int MODE_RESOLVE = 2;
+constexpr int MODE_FACTOR = 3;  // packed factor only, no substitutions
 
 __device__ __forceinline__ float clamp_rsqrt(float x) {
   return rsqrtf(fmaxf(x, 1e-12f));
@@ -69,7 +72,9 @@ __global__ void cholesky_kernel(const T* __restrict__ a_in,
   for (int idx = lane; idx < n * n; idx += kWarp) {
     a[(idx / n) * ld + idx % n] = src[idx];
   }
-  for (int i = lane; i < n; i += kWarp) y[i] = g_in[mat * n + i];
+  if (MODE != MODE_FACTOR) {
+    for (int i = lane; i < n; i += kWarp) y[i] = g_in[mat * n + i];
+  }
   __syncwarp();
 
   if (MODE != MODE_RESOLVE) {
@@ -88,29 +93,30 @@ __global__ void cholesky_kernel(const T* __restrict__ a_in,
     }
   }
 
-  if (MODE == MODE_SOLVE_FACTOR) {
+  if (MODE == MODE_SOLVE_FACTOR || MODE == MODE_FACTOR) {
     T* dst = fac_out + mat * (int64_t)n * n;
     for (int idx = lane; idx < n * n; idx += kWarp) {
       dst[idx] = a[(idx / n) * ld + idx % n];
     }
   }
-
-  // Forward substitution L y = g (column-oriented).
-  for (int k = 0; k < n; ++k) {
-    const T yk = y[k] * a[k * ld + k];
-    __syncwarp();
-    for (int i = k + 1 + lane; i < n; i += kWarp) y[i] -= a[i * ld + k] * yk;
-    if (lane == 0) y[k] = yk;
-    __syncwarp();
-  }
-  // Back substitution L^T x = y; L^T[j, k] = a[k, j].
-  T* x = x_out + mat * n;
-  for (int k = n - 1; k >= 0; --k) {
-    const T xk = y[k] * a[k * ld + k];
-    __syncwarp();
-    for (int j = lane; j < k; j += kWarp) y[j] -= a[k * ld + j] * xk;
-    if (lane == 0) x[k] = xk;
-    __syncwarp();
+  if (MODE != MODE_FACTOR) {
+    // Forward substitution L y = g (column-oriented).
+    for (int k = 0; k < n; ++k) {
+      const T yk = y[k] * a[k * ld + k];
+      __syncwarp();
+      for (int i = k + 1 + lane; i < n; i += kWarp) y[i] -= a[i * ld + k] * yk;
+      if (lane == 0) y[k] = yk;
+      __syncwarp();
+    }
+    // Back substitution L^T x = y; L^T[j, k] = a[k, j].
+    T* x = x_out + mat * n;
+    for (int k = n - 1; k >= 0; --k) {
+      const T xk = y[k] * a[k * ld + k];
+      __syncwarp();
+      for (int j = lane; j < k; j += kWarp) y[j] -= a[k * ld + j] * xk;
+      if (lane == 0) x[k] = xk;
+      __syncwarp();
+    }
   }
 }
 
@@ -146,6 +152,9 @@ int dispatch(int mode, const void* a, const void* g, void* x, void* fac,
     case MODE_RESOLVE:
       return launch<T, MODE_RESOLVE>(a, g, x, fac, batch, n, warps_per_block,
                                      stream);
+    case MODE_FACTOR:
+      return launch<T, MODE_FACTOR>(a, g, x, fac, batch, n, warps_per_block,
+                                    stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -154,9 +163,10 @@ int dispatch(int mode, const void* a, const void* g, void* x, void* fac,
 
 extern "C" {
 
-// mode: 0 solve, 1 solve + packed factor, 2 resolve against a packed factor.
-// elem_bytes: 4 (float) or 8 (double).  a: (batch, n, n) matrices or packed
-// factors; g: (batch, n); x: (batch, n) out; fac: (batch, n, n) out (mode 1).
+// mode: 0 solve, 1 solve + packed factor, 2 resolve against a packed factor,
+// 3 packed factor only.  elem_bytes: 4 (float) or 8 (double).  a: (batch,
+// n, n) matrices or packed factors; g: (batch, n) (unused by mode 3); x:
+// (batch, n) out (unused by mode 3); fac: (batch, n, n) out (modes 1, 3).
 // Returns the cudaError_t of the launch (0 on success).
 int dex_cholesky(int mode, int elem_bytes, const void* a, const void* g,
                  void* x, void* fac, int64_t batch, int n,

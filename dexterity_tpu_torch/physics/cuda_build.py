@@ -1,0 +1,96 @@
+"""Builds and loads the port's CUDA kernel libraries.
+
+Every `csrc/*.cu` source becomes its own plain-C shared library, compiled
+with nvcc for sm_90a and loaded with ctypes.  The first call builds all of
+them at once, one nvcc process per source, all started together, into
+`build/dexterity_tpu_torch/<hash>/` at the repository root; the hash
+covers every `.cu` file, so an edit to any source rebuilds the set.  Later
+calls return the loaded libraries.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict
+
+_CSRC = Path(__file__).resolve().parents[1] / 'csrc'
+_BUILD_ROOT = Path(__file__).resolve().parents[2] / 'build' / \
+    'dexterity_tpu_torch'
+
+# Build record: library paths, wall seconds of the parallel build (0 when
+# every library was already built) and each nvcc's output.
+build_info: Dict[str, object] = {}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def sources() -> Dict[str, Path]:
+  """Library name -> source file, for every `.cu` file in csrc/."""
+  return {p.stem: p for p in sorted(_CSRC.glob('*.cu'))}
+
+
+def _nvcc() -> str:
+  for cand in (shutil.which('nvcc'), '/usr/local/cuda/bin/nvcc'):
+    if cand and os.path.exists(cand):
+      return cand
+  raise RuntimeError('nvcc not found: the CUDA kernels cannot be built')
+
+
+def _digest(srcs: Dict[str, Path]) -> str:
+  h = hashlib.sha256()
+  for name, path in srcs.items():
+    h.update(name.encode())
+    h.update(path.read_bytes())
+  return h.hexdigest()[:16]
+
+
+def build_all() -> Dict[str, ctypes.CDLL]:
+  """Builds (where missing) and loads every kernel library; raises if any
+  nvcc fails."""
+  with _lock:
+    if _libs:
+      return _libs
+    srcs = sources()
+    out_dir = _BUILD_ROOT / _digest(srcs)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs, logs = {}, {}
+    for name, src in srcs.items():
+      so = out_dir / f'libdex_{name}.so'
+      if so.exists():
+        continue
+      tmp = so.with_suffix(f'.{os.getpid()}.tmp')
+      cmd = [_nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a',
+             '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC',
+             '-Xptxas', '-v', '-o', str(tmp), str(src)]
+      procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True),
+                     tmp, so)
+    failed = []
+    for name, (proc, tmp, so) in procs.items():
+      logs[name] = proc.communicate()[0]
+      if proc.returncode != 0:
+        failed.append(f'{name} (rc {proc.returncode}):\n{logs[name]}')
+      else:
+        os.replace(tmp, so)
+    if failed:
+      raise RuntimeError('nvcc failed for ' + '\n'.join(failed))
+    libs = {name: ctypes.CDLL(str(out_dir / f'libdex_{name}.so'))
+            for name in srcs}
+    build_info.update(dir=str(out_dir), seconds=time.perf_counter() - t0,
+                      built=sorted(procs), log=logs)
+    _libs.update(libs)
+    return _libs
+
+
+def library(name: str) -> ctypes.CDLL:
+  """The loaded library built from `csrc/<name>.cu`."""
+  return build_all()[name]

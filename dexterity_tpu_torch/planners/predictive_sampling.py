@@ -1,0 +1,317 @@
+"""Predictive-sampling MPC (port of
+dexterity_tpu/planners/predictive_sampling.py).
+
+One `solve` samples N candidate action sequences around the nominal plan
+(spline-smoothed Gaussian noise, first candidate = nominal), rolls each
+out H control steps through the batched physics (`step.step_n_b`), scores
+them by task reward, keeps the best (or an MPPI-weighted average) as the
+new nominal, and emits its first action; CEM-style iterations repeat this
+with shrinking noise.  `solve_batch` flattens G streams' populations into
+one (G·N) rollout batch, what `bench.py` times.
+
+Randomness comes from an explicit torch.Generator on the model's device,
+passed where the JAX package passes keys; JAX's threefry streams are not
+reproduced (tests inject the same noise into both).  Ties in the argmax
+take the first index.  The planning model lives on `cuda` unless the
+caller passes `device='cpu'`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from dexterity_tpu_torch.core import types as T
+from dexterity_tpu_torch.physics import step as physics_step
+from dexterity_tpu_torch.planners import common
+
+
+@dataclasses.dataclass(frozen=True)
+class PredictiveSamplingConfig:
+  """The JAX package's configuration, field for field, without
+  `rollout_unroll` (an XLA scan-unroll factor with no eager counterpart).
+  See dexterity_tpu/planners/predictive_sampling.py for the measured
+  reasons behind each default."""
+  horizon: int = 10            # control steps to look ahead
+  num_samples: int = 512       # candidate action sequences per solve
+  noise_scale: float = 0.2     # exploration std, in units of ctrl range
+  # Noise at `num_knots` control points, linearly interpolated to the H
+  # steps (0 or >= horizon: white noise).
+  num_knots: int = 4
+  # > 0: nominal <- softmax-weighted average of the candidates at this
+  # temperature (in units of the return spread); 0 keeps the argmax.
+  temperature: float = 0.0
+  iterations: int = 2          # CEM refinement iterations per solve
+  noise_decay: float = 0.5     # noise multiplier per iteration
+  # One-time penalty at the step the task's rollout failure first fires.
+  failure_penalty: float = 30.0
+  # Planning-model physics (planners/common.reduced_planning_model).
+  solver_iterations: int = 4
+  ls_iterations: int = 6
+  solver_refactor_every: int = 2
+  plan_substeps: Optional[int] = None
+  plan_midphase_cap: Optional[int] = 16
+  plan_contact_top_k: Optional[int] = 16
+  plan_implicit_damping: bool = True
+  plan_self_collision: bool = False
+  # One midphase selection per control step (from its first substep),
+  # reused by every substep of the step.
+  plan_midphase_per_control_step: bool = True
+  # Roll the population through the batch-minor substep (step_n_b).  The
+  # per-candidate rollout (False) needs the per-env step, not ported yet.
+  batched_rollouts: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class PlannerState:
+  nominal: torch.Tensor        # (H, nu), or (G, H, nu) for solve_batch
+  best_return: torch.Tensor    # (), or (G,): score of nominal on last solve
+
+
+class _RewardState:
+  """Minimal task-state view for reward evaluation during planning."""
+
+  __slots__ = ('goal', 'goal_distance')
+
+  def __init__(self, goal, goal_distance):
+    self.goal = goal
+    self.goal_distance = goal_distance
+
+
+def _map_data(data: T.Data, fn: Callable) -> T.Data:
+  """Applies fn to every tensor of a Data, its contact slots included."""
+  contact = data.contact.replace(
+      **{f.name: fn(getattr(data.contact, f.name))
+         for f in dataclasses.fields(data.contact)})
+  return data.replace(
+      contact=contact,
+      **{f.name: fn(getattr(data, f.name)) for f in dataclasses.fields(data)
+         if f.name != 'contact'})
+
+
+class PredictiveSampling:
+  """Zero-order sampling MPC over a GoalTask."""
+
+  def __init__(self, task, config: PredictiveSamplingConfig =
+               PredictiveSamplingConfig(), device=None,
+               dtype=torch.float32, extra_reward_fn=None):
+    """Args:
+      device: where the planning model and every rollout live (cuda unless
+        given).
+      dtype: the planning model's dtype.
+      extra_reward_fn: optional (model, data, goals) -> (M,) planning
+        shaping added to the task reward inside rollouts only.
+    """
+    if not config.batched_rollouts:
+      raise NotImplementedError(
+          'batched_rollouts=False rolls each candidate out with '
+          'rollout_return, which needs the per-env step_n (not ported)')
+    self.task = task
+    self.config = config
+    self.extra_reward_fn = extra_reward_fn
+    self.model, self.n_plan_substeps = common.reduced_planning_model(
+        task,
+        solver_iterations=config.solver_iterations,
+        ls_iterations=config.ls_iterations,
+        solver_refactor_every=config.solver_refactor_every,
+        plan_substeps=config.plan_substeps,
+        plan_midphase_cap=config.plan_midphase_cap,
+        plan_contact_top_k=config.plan_contact_top_k,
+        plan_implicit_damping=config.plan_implicit_damping,
+        plan_self_collision=config.plan_self_collision,
+        device=device, dtype=dtype)
+    model = self.model
+    self.dtype = model.dtype
+    self.device = model.device
+    spec = task.action_spec(model)
+    lo = np.where(np.isfinite(spec.minimum), spec.minimum, -1.0)
+    hi = np.where(np.isfinite(spec.maximum), spec.maximum, 1.0)
+    self._lo = torch.as_tensor(lo, dtype=self.dtype, device=self.device)
+    self._hi = torch.as_tensor(hi, dtype=self.dtype, device=self.device)
+    self.nu = spec.shape[0]
+    self._act_ids = self._action_actuator_ids(model)
+    self._act_idx = torch.as_tensor(self._act_ids, dtype=torch.int64,
+                                    device=self.device)
+    self._interp = self._knot_interpolation()
+
+  def _action_actuator_ids(self, model):
+    ids = []
+    for eff in self.task.hand_effectors:
+      ids.extend(eff.indices(model).tolist())
+    return np.asarray(ids, np.int32)
+
+  def _knot_interpolation(self) -> Optional[torch.Tensor]:
+    """(H, k) linear interpolation of k noise knots onto the H steps, or
+    None for white noise."""
+    cfg = self.config
+    k = cfg.num_knots
+    if not k or k >= cfg.horizon:
+      return None
+    t = np.linspace(0.0, k - 1.0, cfg.horizon)
+    i0 = np.clip(np.floor(t).astype(int), 0, k - 2)
+    w = t - i0
+    interp = np.zeros((cfg.horizon, k))
+    interp[np.arange(cfg.horizon), i0] = 1.0 - w
+    interp[np.arange(cfg.horizon), i0 + 1] = w
+    return torch.as_tensor(interp, dtype=self.dtype, device=self.device)
+
+  # -- core ---------------------------------------------------------------
+
+  def init_state(self, data: Optional[T.Data] = None,
+                 streams: Optional[int] = None) -> PlannerState:
+    """The mid-range plan; with `streams`, G stacked states for
+    solve_batch."""
+    del data
+    mid = (self._lo + self._hi) / 2.0
+    nominal = mid.expand(self.config.horizon, self.nu).clone()
+    best = torch.tensor(-float('inf'), dtype=self.dtype, device=self.device)
+    if streams is not None:
+      nominal = nominal.expand(streams, *nominal.shape).clone()
+      best = best.expand(streams).clone()
+    return PlannerState(nominal=nominal, best_return=best)
+
+  def rollout_returns_batched(self, data: T.Data, goal: torch.Tensor,
+                              actions: torch.Tensor) -> torch.Tensor:
+    """Returns of N candidate sequences (N, H, nu) -> (N,) from one
+    environment's data and goal."""
+    n = actions.shape[0]
+    bdata = _map_data(
+        data, lambda x: x.unsqueeze(0).expand((n,) + x.shape).contiguous())
+    goals = goal.unsqueeze(0).expand((n,) + goal.shape)
+    return self.rollout_returns_flat(bdata, goals, actions)
+
+  def rollout_returns_flat(self, bdata: T.Data, goals: torch.Tensor,
+                           actions: torch.Tensor) -> torch.Tensor:
+    """Returns with per-candidate data and goals (leading axis M on
+    everything): bdata (M, ...), goals (M, 4), actions (M, H, nu) ->
+    (M,).  Rewards stop accruing once the task's rollout failure fires,
+    and the step where it first fires costs `failure_penalty`."""
+    model = self.model
+    cfg = self.config
+    task = self.task
+    gen = task.goal_generator
+    acts_t = actions.transpose(0, 1)                     # (H, M, nu)
+    # Position-level planning rewards never read the dynamics outputs:
+    # carry only the integrator state, rebuilding each control step's Data
+    # from the pre-rollout bdata.
+    minimal = task.plan_refresh in ('none', 'position')
+    fields = physics_step._STEP_CARRY_MIN
+    midphase = ('per_call' if cfg.plan_midphase_per_control_step
+                else 'per_substep')
+    carry = ({f: getattr(bdata, f) for f in fields} if minimal else bdata)
+    alive = torch.ones(bdata.qpos.shape[:1], dtype=torch.bool,
+                       device=bdata.qpos.device)
+    rewards = []
+    for action in acts_t:
+      d = bdata.replace(**carry) if minimal else carry
+      ctrl = d.ctrl.clone()
+      ctrl[:, self._act_idx] = torch.clamp(action, self._lo, self._hi)
+      d = physics_step.step_n_b(
+          model, d.replace(ctrl=ctrl), self.n_plan_substeps,
+          refresh=task.plan_refresh, midphase=midphase,
+          carry='minimal' if minimal else 'full')
+      dist = gen.goal_distance(goals, gen.current_state(model, d))
+      r = task.get_reward(model, d, _RewardState(goals, dist))
+      if self.extra_reward_fn is not None:
+        r = r + self.extra_reward_fn(model, d, goals)
+      alive_after = alive & ~task.rollout_failure(model, d)
+      r = torch.where(alive_after, r,
+                      torch.where(alive, r.new_full((), -cfg.failure_penalty),
+                                  r.new_zeros(())))
+      rewards.append(r)
+      alive = alive_after
+      carry = {f: getattr(d, f) for f in fields} if minimal else d
+    return torch.stack(rewards).sum(0)
+
+  def _sample_noise(self, gen: torch.Generator, n: int) -> torch.Tensor:
+    """(n, H, nu) exploration noise from `gen`; spline-smoothed when
+    num_knots > 0."""
+    cfg = self.config
+    rng = self._hi - self._lo
+    steps = cfg.horizon if self._interp is None else cfg.num_knots
+    z = torch.randn((n, steps, self.nu), generator=gen, dtype=self.dtype,
+                    device=self.device) * cfg.noise_scale * rng
+    if self._interp is None:
+      return z
+    return torch.einsum('hk,nku->nhu', self._interp, z)
+
+  def _one_iteration(self, data, goal, nominal, gen, noise_mult):
+    """Samples around `nominal`, evaluates, returns (plan, best
+    return)."""
+    cfg = self.config
+    noise = self._sample_noise(gen, cfg.num_samples - 1) * noise_mult
+    candidates = torch.cat([nominal[None], nominal[None] + noise])
+    candidates = torch.clamp(candidates, self._lo, self._hi)
+    returns = self.rollout_returns_batched(data, goal, candidates)
+    best = torch.argmax(returns)
+    if cfg.temperature > 0:
+      # MPPI-style weighted plan average, normalised by the return spread.
+      spread = torch.clamp_min(returns.max() - returns.min(), 1e-6)
+      w = torch.softmax((returns - returns.max())
+                        / (cfg.temperature * spread), dim=0)
+      seq = torch.einsum('n,nhu->hu', w, candidates)
+      seq = torch.clamp(seq, self._lo, self._hi)
+    else:
+      seq = candidates[best]
+    return seq, returns[best]
+
+  def solve(self, data: T.Data, goal: torch.Tensor, pstate: PlannerState,
+            gen: torch.Generator):
+    """One MPC solve for one environment (unbatched Data). Returns
+    (action (nu,), new PlannerState)."""
+    cfg = self.config
+    best_seq = pstate.nominal
+    best_ret = torch.tensor(-float('inf'), dtype=self.dtype,
+                            device=self.device)
+    mult = 1.0
+    for _ in range(max(cfg.iterations, 1)):
+      best_seq, best_ret = self._one_iteration(data, goal, best_seq, gen,
+                                               mult)
+      mult = mult * cfg.noise_decay
+    # Receding horizon: shift, repeat the last action.
+    nominal = torch.cat([best_seq[1:], best_seq[-1:]])
+    return best_seq[0], PlannerState(nominal=nominal, best_return=best_ret)
+
+  def solve_batch(self, data_b: T.Data, goals: torch.Tensor, pstates:
+                  PlannerState, gen: torch.Generator):
+    """G concurrent MPC solves as one (G·N) rollout batch: data_b and
+    goals carry a leading G, pstates (G, H, nu) / (G,).  Each iteration
+    draws the G streams' noise in one call, (G·(N-1), H, nu).  Returns
+    (actions (G, nu), new PlannerState)."""
+    cfg = self.config
+    g = goals.shape[0]
+    n = cfg.num_samples
+    best_seq = pstates.nominal                           # (G, H, nu)
+    best_ret = torch.full((g,), -float('inf'), dtype=self.dtype,
+                          device=self.device)
+    mult = 1.0
+    # The flattened rollout initial state and goals are the same in every
+    # iteration: built once.
+    bdata = _map_data(data_b, lambda x: x.unsqueeze(1).expand(
+        (g, n) + x.shape[1:]).reshape((g * n,) + x.shape[1:]))
+    goals_f = goals.unsqueeze(1).expand((g, n) + goals.shape[1:]).reshape(
+        (g * n,) + goals.shape[1:])
+    for _ in range(max(cfg.iterations, 1)):
+      noise = self._sample_noise(gen, g * (n - 1)).reshape(
+          g, n - 1, cfg.horizon, self.nu) * mult
+      cands = torch.cat([best_seq[:, None], best_seq[:, None] + noise], 1)
+      cands = torch.clamp(cands, self._lo, self._hi)    # (G, N, H, nu)
+      returns = self.rollout_returns_flat(
+          bdata, goals_f, cands.reshape((g * n,) + cands.shape[2:]))
+      returns = returns.reshape(g, n)
+      best = torch.argmax(returns, dim=1)
+      rows = torch.arange(g, device=self.device)
+      best_seq = cands[rows, best]
+      best_ret = returns[rows, best]
+      mult = mult * cfg.noise_decay
+    nominal = torch.cat([best_seq[:, 1:], best_seq[:, -1:]], dim=1)
+    return best_seq[:, 0], PlannerState(nominal=nominal,
+                                        best_return=best_ret)
+
+  def action(self, env_state, pstate: PlannerState, gen: torch.Generator):
+    """Convenience: plans from an environment state with `.data` and
+    `.task.goal`."""
+    return self.solve(env_state.data, env_state.task.goal, pstate, gen)

@@ -10,7 +10,9 @@ import numpy as np
 import pytest
 import torch
 
+from dexterity_tpu_torch import manipulation
 from dexterity_tpu_torch.physics import linalg_cuda as LC
+from dexterity_tpu_torch.physics import tree_cuda
 
 
 def _spd(seed, batch, n):
@@ -52,7 +54,30 @@ def test_kernels_match_plain_on_card(dtype, n):
                              LC.solve_plain(hc, gc), **tol)
   torch.cuda.synchronize()
   assert LC.launches == {'cholesky_solve_factor': 1,
-                         'cholesky_resolve_const': 1, 'cholesky_solve': 1}
+                         'cholesky_resolve_const': 1, 'cholesky_solve': 1,
+                         'cholesky_factor': 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [30, 80])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_factor_kernel_matches_plain_on_card(dtype, n):
+  """K4 against the plain factor, and the K4 + K2 pair's solution."""
+  _cuda()
+  h, g = _spd(9, 1024, n)
+  hc = torch.as_tensor(h, dtype=dtype, device='cuda')
+  gc = torch.as_tensor(g, dtype=dtype, device='cuda')
+  tol = _TOL[dtype]
+  LC.reset_launches()
+  fac = LC.cholesky_factor(hc)
+  low = torch.tril(torch.ones(n, n, dtype=torch.bool, device='cuda'))
+  torch.testing.assert_close(fac[..., low], LC.factor_plain(hc)[..., low],
+                             **tol)
+  x = LC.cholesky_resolve(fac, gc)
+  torch.testing.assert_close(x, LC.solve_plain(hc, gc), **tol)
+  torch.cuda.synchronize()
+  assert LC.launches['cholesky_factor'] == 1
+  assert LC.launches['cholesky_resolve_const'] == 1
 
 
 @pytest.mark.cuda
@@ -78,3 +103,65 @@ def test_kernel_rejects_what_it_does_not_take():
   big = torch.eye(300, device='cuda')[None]
   with pytest.raises(ValueError):
     LC.cholesky_solve(big, torch.ones(1, 300, device='cuda'))
+
+
+def _tree_inputs(model, b, seed):
+  gen = torch.Generator().manual_seed(seed)
+  dt = model.dtype
+  qpos = (model.qpos0.cpu()[:, None]
+          + 0.3 * torch.randn(model.nq, b, generator=gen, dtype=dt))
+  qvel = torch.randn(model.nv, b, generator=gen, dtype=dt)
+  mp = torch.randn(3 * model.nmocap, b, generator=gen, dtype=dt)
+  mq = torch.randn(4 * model.nmocap, b, generator=gen, dtype=dt)
+  return [x.to(model.device) for x in (qpos, qvel, mp, mq)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b', [64, 37])
+def test_tree_sweep_kernels_match_plain_on_card(b):
+  """K5 + K6 against the plain version in float64, on a batch that fills
+  its last tile and one that does not."""
+  _cuda()
+  task = manipulation.build_task('reorient', 'state_dense')
+  model = task.compile(device='cuda', dtype=torch.float64)
+  ins = _tree_inputs(model, b, 10)
+  tree_cuda.reset_launches()
+  out = tree_cuda.build_tree_sweep(model)(*ins)
+  ref = tree_cuda.tree_sweep_plain(model, *ins)
+  torch.cuda.synchronize()
+  assert tree_cuda.launches == {'tree_sweep_fk': 1, 'tree_sweep_dyn': 1}
+  assert sorted(out) == sorted(ref)
+  for key in ref:
+    torch.testing.assert_close(out[key], ref[key], rtol=1e-10, atol=1e-12,
+                               msg=key)
+
+
+@pytest.mark.cuda
+def test_small_solve_batch_on_card():
+  """A small solve_batch on the card: K1/K2 launch counts per solve,
+  finite in-range actions."""
+  _cuda()
+  from dexterity_tpu_torch.core import types
+  from dexterity_tpu_torch.manipulation.goals import prop_orientation
+  from dexterity_tpu_torch.planners import predictive_sampling as ps
+  task = manipulation.build_task('reorient', 'state_dense')
+  cfg = ps.PredictiveSamplingConfig(horizon=2, num_samples=8, iterations=2,
+                                    plan_substeps=3)
+  planner = ps.PredictiveSampling(task, cfg)
+  gen = torch.Generator(device='cuda').manual_seed(0)
+  data = types.make_data(planner.model, (2,))
+  goals = prop_orientation.uniform_quaternion(gen, (2,))
+  LC.reset_launches()
+  tree_cuda.reset_launches()
+  actions, state = planner.solve_batch(data, goals,
+                                       planner.init_state(streams=2), gen)
+  torch.cuda.synchronize()
+  per_solve = cfg.iterations * cfg.horizon * planner.n_plan_substeps * 2
+  assert LC.launches['cholesky_solve_factor'] == per_solve
+  assert LC.launches['cholesky_resolve_const'] == per_solve
+  assert LC.launches['cholesky_solve'] == LC.launches['cholesky_factor'] == 0
+  assert tree_cuda.launches == {'tree_sweep_fk': 0, 'tree_sweep_dyn': 0}
+  assert actions.shape == (2, planner.nu) and actions.is_cuda
+  assert bool(torch.isfinite(actions).all())
+  assert bool(((actions >= planner._lo) & (actions <= planner._hi)).all())
+  assert bool(torch.isfinite(state.best_return).all())

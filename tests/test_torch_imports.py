@@ -48,10 +48,19 @@ def test_no_jax_or_jax_package_imports(path):
 
 
 def test_importing_the_port_loads_no_jax():
-  code = ('import sys\n'
-          'import dexterity_tpu_torch.physics.step\n'
-          'import dexterity_tpu_torch.manipulation\n'
-          'import dexterity_tpu_torch.planners.common\n'
+  """Imports every module of the port and then looks for jax."""
+  code = ('import importlib, pkgutil, sys\n'
+          'import dexterity_tpu_torch as pkg\n'
+          'names = [m.name for m in pkgutil.walk_packages(\n'
+          '    pkg.__path__, "dexterity_tpu_torch.")]\n'
+          'for name in names:\n'
+          '  importlib.import_module(name)\n'
+          'for name in ("planners.predictive_sampling", "physics.tree_cuda",\n'
+          '             "physics.cuda_build", "effectors.hand_effector",\n'
+          '             "manipulation.goals.prop_orientation",\n'
+          '             "manipulation.shared.rewards", "utils.specs", "goal",\n'
+          '             "effector", "task"):\n'
+          '  assert "dexterity_tpu_torch." + name in sys.modules, name\n'
           'bad = [m for m in sys.modules if m.split(".")[0] in '
           '("jax", "dexterity_tpu")]\n'
           'assert not bad, bad\n')
@@ -70,12 +79,15 @@ def test_entry_points_raise_without_a_card(monkeypatch):
   from dexterity_tpu_torch import manipulation
   from dexterity_tpu_torch.core import types
   from dexterity_tpu_torch.planners import common
+  from dexterity_tpu_torch.planners import predictive_sampling as ps
   monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
   task = manipulation.build_task('reorient', 'state_dense')
   with pytest.raises(RuntimeError, match='no CUDA device'):
     task.compile()
   with pytest.raises(RuntimeError, match='no CUDA device'):
     common.reduced_planning_model(task, 4, 6)
+  with pytest.raises(RuntimeError, match='no CUDA device'):
+    ps.PredictiveSampling(task, ps.PredictiveSamplingConfig(horizon=2))
   with pytest.raises(RuntimeError, match='no CUDA device'):
     types.resolve_device(None)
   assert types.resolve_device('cpu') == torch.device('cpu')

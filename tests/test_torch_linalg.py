@@ -3,9 +3,11 @@ linalg_cuda) against the JAX package's linalg_pallas.
 
 On the CPU the wrappers run their plain PyTorch versions; those are held
 to the JAX solutions at the tolerances of tests/test_linalg_pallas.py.
-The packed factor (K1's output, K2's input) exists only in the kernels'
-layout — JAX's CPU "factor" is the matrix itself — so it is held to a
-numpy implementation of the documented layout.  The CUDA kernels
+The packed factor (K1's and K4's output, K2's input) exists only in the
+kernels' layout — JAX's CPU "factor" is the matrix itself — so it is held
+to a numpy implementation of the documented layout, and the
+cholesky_factor / cholesky_resolve pair is held to JAX's by its
+solution.  The CUDA kernels
 themselves are checked on the card by tests/test_torch_cuda.py and by
 chip_smoke.py.
 """
@@ -94,6 +96,42 @@ def test_cholesky_resolve_const_matches_jax(batch, n):
   np.testing.assert_array_equal(got2, got)
 
 
+@pytest.mark.parametrize('batch,n', [((2, 6), 9), ((5,), 8), ((4,), 30)])
+def test_cholesky_factor_resolve_pair_matches_jax(batch, n):
+  """K4 + K2: the pair's solution against JAX's cholesky_factor /
+  cholesky_resolve under nested vmaps (tests/test_linalg_pallas.py).
+  JAX's CPU factor is the matrix itself, the port's the packed factor;
+  the solutions agree."""
+  h, g = _spd(7, batch, n)
+
+  def fr(hh, gg):
+    return LP.cholesky_resolve(LP.cholesky_factor(hh), gg)
+
+  f = fr
+  for _ in batch:
+    f = jax.vmap(f)
+  ref = np.asarray(jax.jit(f)(jnp.asarray(h), jnp.asarray(g)))
+  fac = LC.cholesky_factor(_t(h))
+  assert fac.shape == batch + (n, n)
+  got = LC.cholesky_resolve(fac, _t(g)).numpy()
+  np.testing.assert_allclose(got, ref, rtol=1e-7, atol=1e-9)
+  np.testing.assert_allclose(got, np.linalg.solve(h, g[..., None])[..., 0],
+                             rtol=1e-7, atol=1e-9)
+
+
+@pytest.mark.parametrize('batch,n', _SHAPES)
+def test_cholesky_factor_packed_layout(batch, n):
+  """K4's output is the documented packed layout, the same as K1's
+  factor."""
+  h, g = _spd(8, batch, n)
+  fac = LC.cholesky_factor(_t(h)).numpy()
+  low = np.tril(np.ones((n, n), bool))
+  np.testing.assert_allclose(fac[..., low], _packed_factor_np(h)[..., low],
+                             rtol=1e-10, atol=1e-12)
+  _, fac1 = LC.cholesky_solve_factor(_t(h), _t(g))
+  np.testing.assert_array_equal(fac[..., low], fac1.numpy()[..., low])
+
+
 def test_near_singular_is_finite():
   """The pivot clamp rsqrt(max(a_kk, 1e-12)) keeps a rank-deficient
   matrix finite, as on the TPU."""
@@ -103,7 +141,8 @@ def test_near_singular_is_finite():
   h = np.einsum('bik,bjk->bij', v, v)               # rank 2
   g = rng.randn(3, n)
   for x in (LC.cholesky_solve(_t(h), _t(g)),
-            LC.cholesky_solve_factor(_t(h), _t(g))[0]):
+            LC.cholesky_solve_factor(_t(h), _t(g))[0],
+            LC.cholesky_resolve(LC.cholesky_factor(_t(h)), _t(g))):
     assert torch.isfinite(x).all()
 
 
@@ -114,8 +153,10 @@ def test_cpu_tensors_use_plain_versions():
   x, fac = LC.cholesky_solve_factor(_t(h), _t(g))
   LC.cholesky_resolve_const(fac, _t(g))
   LC.cholesky_solve(_t(h), _t(g))
+  LC.cholesky_resolve(LC.cholesky_factor(_t(h)), _t(g))
   assert LC.launches == {'cholesky_solve_factor': 0,
-                         'cholesky_resolve_const': 0, 'cholesky_solve': 0}
+                         'cholesky_resolve_const': 0, 'cholesky_solve': 0,
+                         'cholesky_factor': 0}
 
 
 def test_float32_plain_matches_float64():

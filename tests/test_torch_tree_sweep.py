@@ -1,0 +1,205 @@
+"""Fused tree sweep of the PyTorch port (dexterity_tpu_torch.physics.
+tree_cuda, kernels K5/K6) against the JAX package's tree_pallas.
+
+On the CPU `build_tree_sweep`'s fn runs the plain version, which is held
+to `tree_pallas._reference_sweep` (the Pallas kernels' math as one XLA
+program) on the reorient environment and planning models at B = 4, and to
+JAX's `step._precompute_planes`.  The CUDA kernels read the packed tables
+built here; their structure is checked against the masks the plane
+functions use.  The kernels themselves run on the card
+(tests/test_torch_cuda.py, chip_smoke.py).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dexterity_tpu import manipulation
+from dexterity_tpu.physics import step as jstep
+from dexterity_tpu.physics import tree_pallas
+from dexterity_tpu.planners import common as jcommon
+from dexterity_tpu_torch import manipulation as pmanip
+from dexterity_tpu_torch.core import types as PT
+from dexterity_tpu_torch.physics import kinematics as pkin
+from dexterity_tpu_torch.physics import smooth as psmooth
+from dexterity_tpu_torch.physics import step as pstep
+from dexterity_tpu_torch.physics import tree_cuda
+from dexterity_tpu_torch.planners import common as pcommon
+
+_PLAN = dict(solver_iterations=4, ls_iterations=6, solver_refactor_every=2,
+             plan_substeps=3, plan_midphase_cap=16, plan_contact_top_k=16,
+             plan_implicit_damping=True, plan_self_collision=False)
+_B = 4
+_KEYS = ('xpos', 'xquat', 'cdof', 'gpos', 'gmat', 'xipos', 'ten_length',
+         'ten_velocity', 'qm', 'qfrc_bias')
+
+
+@pytest.fixture(scope='module')
+def models():
+  jtask = manipulation.build_task('reorient', 'state_dense')
+  ptask = pmanip.build_task('reorient', 'state_dense')
+  jplan, _ = jcommon.reduced_planning_model(jtask, **_PLAN)
+  pplan, _ = pcommon.reduced_planning_model(
+      ptask, device='cpu', dtype=torch.float64, **_PLAN)
+  return dict(env=(jtask.compile(), ptask.compile(device='cpu',
+                                                  dtype=torch.float64)),
+              plan=(jplan, pplan))
+
+
+def _inputs(pm, seed):
+  """Seeded batch-minor inputs: qpos around qpos0 with a random cube
+  orientation, random qvel, mocap rows component-major."""
+  rng = np.random.default_rng(seed)
+  qpos = pm.qpos0.numpy()[:, None] + 0.3 * rng.normal(size=(pm.nq, _B))
+  free = [j for j in range(pm.njnt)
+          if pm.jnt_type[j] == int(PT.JointType.FREE)][0]
+  qa = pm.jnt_qposadr[free]
+  q = rng.normal(size=(4, _B))
+  qpos[qa + 3:qa + 7] = 1.3 * q / np.linalg.norm(q, axis=0)  # not unit
+  qvel = rng.normal(size=(pm.nv, _B))
+  mp = rng.normal(size=(3 * pm.nmocap, _B))
+  mq = rng.normal(size=(4 * pm.nmocap, _B))
+  mq /= np.linalg.norm(mq.reshape(4, pm.nmocap, _B), axis=0).reshape(1, -1)
+  return qpos, qvel, mp, mq
+
+
+def _port(pm, ins):
+  fn = tree_cuda.build_tree_sweep(pm, B=_B)
+  return fn(*(torch.as_tensor(x) for x in ins))
+
+
+def test_supports_matches_jax(models):
+  jm, pm = models['env']
+  assert tree_cuda.supports(pm) == tree_pallas.supports(jm) is True
+  ball = tuple(int(PT.JointType.BALL) if t == int(PT.JointType.HINGE)
+               else t for t in pm.jnt_type)
+  assert tree_cuda.supports(pm.replace(jnt_type=ball)) == \
+      tree_pallas.supports(jm.replace(jnt_type=ball)) is False
+  with pytest.raises(ValueError):
+    tree_cuda.build_tree_sweep(pm.replace(jnt_type=ball))
+
+
+# The reference sweep computes in float32 whatever its inputs: _ConstStore
+# rounds every model table to float32 and its one-hot dots return float32.
+# The port computes in float64, so the two agree to float32 rounding
+# (6e-8) accumulated over the tree depth and the CRB/RNE sums, times each
+# output's scale: measured up to 8e-7, limit 2e-6.
+_REF_RTOL = 2e-6
+
+
+@pytest.mark.parametrize('which', ['env', 'plan'])
+def test_sweep_matches_reference_sweep(models, which):
+  jm, pm = models[which]
+  ins = _inputs(pm, 0)
+  ref = tree_pallas._reference_sweep(jm, *(jnp.asarray(x) for x in ins))
+  got = _port(pm, ins)
+  assert sorted(got) == sorted(ref) == sorted(_KEYS)
+  for key in _KEYS:
+    a, b = np.asarray(ref[key]), got[key].numpy()
+    assert a.shape == b.shape, key
+    scale = max(np.abs(a).max(), 1.0)
+    np.testing.assert_allclose(b, a, rtol=0, atol=_REF_RTOL * scale,
+                               err_msg=key)
+
+
+def test_mocap_rows_are_component_major(models):
+  """Row c·nmocap + m is component c of mocap body m: the mocap body's
+  world pose follows the rows as the kernel's convention reads them."""
+  _, pm = models['plan']
+  ins = _inputs(pm, 1)
+  out = _port(pm, ins)
+  body = pm.body_mocapid.index(0)
+  nb = pm.nbody
+  for c in range(3):
+    np.testing.assert_allclose(out['xpos'][c * nb + body].numpy(),
+                               ins[2][c * pm.nmocap], atol=1e-12)
+  for c in range(4):
+    np.testing.assert_allclose(out['xquat'][c * nb + body].numpy(),
+                               ins[3][c * pm.nmocap], atol=1e-12)
+
+
+@pytest.mark.parametrize('which', ['env', 'plan'])
+def test_plain_matches_jax_precompute_planes(models, which):
+  """The plain version against JAX's production plane pipeline, in
+  float64 on both sides."""
+  jm, pm = models[which]
+  qpos, qvel, mp, mq = _inputs(pm, 2)
+  nm = pm.nmocap
+  jp = jstep._precompute_planes(
+      jm, jnp.asarray(qpos), jnp.asarray(qvel),
+      jnp.asarray(mp.reshape(3, nm, _B).transpose(1, 0, 2)),
+      jnp.asarray(mq.reshape(4, nm, _B).transpose(1, 0, 2)))
+  got = _port(pm, (qpos, qvel, mp, mq))
+  want = dict(
+      xpos=jp['xpos_p'], xquat=jp['xquat_p'], cdof=jp['cdof6'],
+      gpos=jnp.stack(jp['gpos']), gmat=jnp.stack(jp['gmat']),
+      xipos=jp['xipos3'], ten_length=jp['ten_length'],
+      ten_velocity=jp['ten_velocity'], qm=jp['qm'],
+      qfrc_bias=jp['qfrc_bias'])
+  for key in _KEYS:
+    a = np.asarray(want[key]).reshape(got[key].shape)
+    np.testing.assert_allclose(got[key].numpy(), a, rtol=1e-9, atol=1e-12,
+                               err_msg=key)
+
+
+def test_tables_match_the_plane_masks(models):
+  """The kernels' dof walk gives the CRB pattern and the ancestor mask;
+  the table header points at segments of the stated sizes."""
+  _, pm = models['plan']
+  par = tree_cuda._dof_parent(pm)
+  up = np.zeros((pm.nv, pm.nv))
+  for w in range(pm.nv):
+    v = w
+    while v >= 0:
+      up[v, w] = 1.0
+      v = par[v]
+  np.testing.assert_array_equal(up, psmooth._dof_upper_mask_np(pm))
+  anc = pkin.ancestor_mask(pm)
+  for v in range(pm.nv):
+    # Subtree of body(v) = the bodies whose ancestor dofs include v.
+    sub = psmooth._subtree_mask_np(pm)[pm.dof_bodyid[v]]
+    np.testing.assert_array_equal(sub[1:], anc[1:, v])
+  ti, tf = tree_cuda.tables_np(pm)
+  ni, nf = len(tree_cuda._INT_SEGS), len(tree_cuda._FLOAT_SEGS)
+  sizes = dict(body_pos=3 * pm.nbody, body_quat=4 * pm.nbody,
+               gravity=3, ten_qsel=pm.ntendon * pm.nq,
+               ten_moment=pm.ntendon * pm.nv, geom_quat=4 * pm.ngeom)
+  ends = list(ti[ni:ni + nf][1:]) + [len(tf)]
+  for name, size in sizes.items():
+    k = tree_cuda._FLOAT_SEGS.index(name)
+    assert ends[k] - ti[ni + k] == size, name
+  iends = list(ti[1:ni]) + [len(ti)]
+  k = tree_cuda._INT_SEGS.index('geom_body')
+  assert iends[k] - ti[k] == pm.ngeom
+  np.testing.assert_array_equal(ti[ti[k]:iends[k]], pm.geom_bodyid)
+
+
+def test_cpu_inputs_use_the_plain_version(models):
+  _, pm = models['plan']
+  tree_cuda.reset_launches()
+  fn = tree_cuda.build_tree_sweep(pm)
+  ins = [torch.as_tensor(x) for x in _inputs(pm, 3)]
+  out = fn(*ins)
+  ref = tree_cuda.tree_sweep_plain(pm, *ins)
+  for key in _KEYS:
+    torch.testing.assert_close(out[key], ref[key], rtol=0, atol=0)
+  fk = tree_cuda.tree_fk(pm, *ins)
+  dyn = tree_cuda.tree_dyn(pm, fk['cdof'], fk['body10'], ins[1])
+  assert tree_cuda.launches == {'tree_sweep_fk': 0, 'tree_sweep_dyn': 0}
+  for key in _KEYS:
+    torch.testing.assert_close({**fk, **dyn}[key], ref[key], rtol=0,
+                               atol=0)
+  # The port's own production planes, on the same inputs.
+  nm = pm.nmocap
+  pre = pstep._precompute_planes(
+      pm, ins[0], ins[1], ins[2].reshape(3, nm, _B).transpose(0, 1),
+      ins[3].reshape(4, nm, _B).transpose(0, 1))
+  for key, pkey in (('xpos', 'xpos_p'), ('cdof', 'cdof6'), ('qm', 'qm'),
+                    ('qfrc_bias', 'qfrc_bias'), ('xipos', 'xipos3')):
+    torch.testing.assert_close(ref[key], pre[pkey].reshape(ref[key].shape),
+                               rtol=0, atol=0)
+  with pytest.raises(ValueError):
+    tree_cuda.build_tree_sweep(pm, B=_B + 1)(*ins)
+  with pytest.raises(ValueError):
+    fn(ins[0][:-1], *ins[1:])
