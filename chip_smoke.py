@@ -7,7 +7,8 @@ Needs a CUDA device and the repository checkout beside this file; exits
 non-zero otherwise, and on any failed check.  Phases, one JSON line each:
 
   0. probe: torch/CUDA versions, the card, the kernel build (one nvcc per
-     csrc/*.cu source, all started together, sm_90a).
+     csrc/*.cu source, all started together, sm_90a), and the registers
+     and spills of the register-design kernels (none may spill).
   1. rollouts: the ShadowHand reorient planning model (4 Newton iterations,
      6 line-search steps, refactor every 2, 3 substeps, contact budget
      16/16, implicit damping, no self-collision) steps B = 1024 rollouts
@@ -28,8 +29,13 @@ non-zero otherwise, and on any failed check.  Phases, one JSON line each:
   5. cholesky_factor: the K4 + K2 entry points on the path's Hessians.
   6. kernels: each Cholesky kernel against its plain version and a
      float64 reference, on seeded SPD matrices and on the Hessians the
-     rollouts built; timed (device time, torch.profiler) beside its plain
-     version, a library call and its bound.
+     rollouts built, and K1/K2 on a rank-deficient batch; timed (device
+     time, torch.profiler) beside its plain version, a library call and
+     its bound.  K1 and K2 also name the design that ran (`design`, from
+     the profiled kernel names) and time the shared-memory design at the
+     same inputs, in turns with it (`previous_design_ms`).
+  7. juggle size: K1 and K2 at n = 62 (the shared-memory design), checked
+     against their plain versions and timed beside their bounds.
   --profile adds host and device time by stage and device time by kernel
   over one planning control step, and the device busy time and idle share
   over one solve_batch.
@@ -42,6 +48,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -62,6 +69,9 @@ STREAMS = 4
 SAMPLES = 256
 ITERATIONS = 2
 SOLVES = 5
+# The juggle model's nv (ROADMAP §A.3), where K1 and K2 leave the register
+# design.
+JUGGLE_NV = 62
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and FP32 non-tensor rate.
 PEAK_BYTES_PER_S = 3.35e12
@@ -72,10 +82,11 @@ PEAK_F64_FLOPS = 34e12
 _LP = 'dexterity_tpu/physics/linalg_pallas.py'
 _TP = 'dexterity_tpu/physics/tree_pallas.py'
 _CHOL = 'dexterity_tpu_torch/csrc/cholesky.cu'
+_REGS = 'dexterity_tpu_torch/csrc/cholesky_regs.cu'
 _TREE = 'dexterity_tpu_torch/csrc/tree_sweep.cu'
 KERNELS = [
-    ('cholesky_solve_factor', f'{_LP}:135', _CHOL, 'main_path'),
-    ('cholesky_resolve_const', f'{_LP}:291', _CHOL, 'main_path'),
+    ('cholesky_solve_factor', f'{_LP}:135', _REGS, 'main_path'),
+    ('cholesky_resolve_const', f'{_LP}:291', _REGS, 'main_path'),
     ('cholesky_solve', f'{_LP}:74', _CHOL, 'environment_model'),
     ('cholesky_factor', f'{_LP}:262', _CHOL, 'entry:cholesky_factor'),
     ('tree_sweep_fk', f'{_TP}:239', _TREE, 'entry:build_tree_sweep'),
@@ -155,16 +166,54 @@ def phase_probe(torch, pkg, smi):
   pkg['linalg_cuda'].build()
   pkg['tree_cuda'].build()
   build_s = time.perf_counter() - t0
+  logs = cuda_build.build_info.get('log', {})
   ptxas = {name: [ln.strip() for ln in log.splitlines()
                   if 'registers' in ln or 'spill' in ln][:12]
-           for name, log in cuda_build.build_info.get('log', {}).items()}
+           for name, log in logs.items()}
+  # The register design's four kernels (K1, K2 in float32 and float64):
+  # none may spill.
+  regs = _ptxas_entries(logs.get('cholesky_regs', ''), 'cholesky_regs_')
+  check(len(regs) == 4, f'register-design kernels in the ptxas log: {regs}')
+  for label, v in regs.items():
+    check(v.get('spill_stores') == 0 and v.get('spill_loads') == 0,
+          f'{label} spills: {v}')
   emit({'phase': 'probe', 'torch': torch.__version__,
         'cuda': torch.version.cuda, 'python': sys.version.split()[0],
         'device': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count(), 'nvidia_smi': smi,
         'kernel_build_s': build_s,
         'nvcc_parallel_s': cuda_build.build_info.get('seconds'),
-        'sources': sorted(cuda_build.sources()), 'ptxas': ptxas})
+        'sources': sorted(cuda_build.sources()), 'ptxas': ptxas,
+        'register_design_ptxas': regs})
+
+
+def _ptxas_entries(log, prefix):
+  """Registers and spill bytes of each kernel whose mangled name holds
+  `prefix`, from nvcc's `-Xptxas -v` log, labelled kernel_type."""
+  out, cur = {}, None
+  for ln in log.splitlines():
+    m = re.search(r"(?:Compiling entry function|Function properties for) "
+                  r"'?([\w$]+)'?", ln)
+    if m:
+      cur = m.group(1) if prefix in m.group(1) else None
+      if cur is not None:
+        # The kernel's own name follows its length; the anonymous
+        # namespace's name (which holds the file name) does not.
+        t = re.search(r'\d' + prefix + r'([a-z_]+?)I([fd])E', cur)
+        label = (f'{t.group(1)}_{"f32" if t.group(2) == "f" else "f64"}'
+                 if t else cur)
+        out.setdefault(cur, {'kernel': label})
+      continue
+    if cur is None:
+      continue
+    m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', ln)
+    if m:
+      out[cur].update(spill_stores=int(m.group(1)),
+                      spill_loads=int(m.group(2)))
+    m = re.search(r'Used (\d+) registers', ln)
+    if m:
+      out[cur]['registers'] = int(m.group(1))
+  return {v.pop('kernel'): v for v in out.values()}
 
 
 def run_rollouts(torch, step, model, n, data, ctrls):
@@ -319,22 +368,38 @@ def _call_ms(torch, fn, reps):
   return start.elapsed_time(end) / reps
 
 
-def _device_ms(torch, fn, reps):
-  """Per-call device time of `fn`: the summed durations of the kernels it
-  launches over `reps` calls, from torch.profiler.  Host work and waits
-  between kernels are not counted."""
+def _device_profile(torch, fn, reps):
+  """Per-call device time of `fn` (the summed durations of the kernels it
+  launches over `reps` calls, from torch.profiler; host work and waits
+  between kernels are not counted) and the names of those kernels."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
   fn()
   torch.cuda.synchronize()
-  with profile(activities=[ProfilerActivity.CUDA]) as prof:
-    for _ in range(reps):
-      fn()
-    torch.cuda.synchronize()
-  us = sum(e.self_device_time_total for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA)
-  check(us > 0, 'the profiler saw no device time')
-  return us / 1e3 / reps
+  # A pass has come back on the H100 with no kernel in it (the library
+  # yardstick's, once); up to three passes.
+  for _ in range(3):
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+      for _ in range(reps):
+        fn()
+      torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    us = sum(e.self_device_time_total for e in kern)
+    if us > 0:
+      return us / 1e3 / reps, [e.key for e in kern]
+  check(False, 'the profiler saw no device time in three passes')
+
+
+def _device_ms(torch, fn, reps):
+  return _device_profile(torch, fn, reps)[0]
+
+
+def _ran_design(names):
+  """The Cholesky design whose kernel appears in profiled kernel names."""
+  if any('cholesky_regs' in k for k in names):
+    return 'registers'
+  return 'shared' if any('cholesky_kernel' in k for k in names) else None
 
 
 def _bound(b, n, elem, kind):
@@ -480,17 +545,117 @@ def phase_kernels(torch, pkg, main):
       kind = 'solve'
     # The library yardstick uses cholesky_ex, which does not synchronise to
     # check for failure (torch.linalg.cholesky does).
-    ms = _device_ms(torch, fn, 100)
+    if name == 'cholesky_solve_factor' or name == 'cholesky_resolve_const':
+      # The design the wrapper ran, and the shared-memory design at the same
+      # inputs, timed in turns: new, previous, previous, new.
+      if name == 'cholesky_resolve_const':
+        prev = lambda: lc._launch(lc._MODE_RESOLVE, name, fac, g,
+                                  design='shared')
+      else:
+        prev = lambda: lc._launch(lc._MODE_SOLVE_FACTOR, name, h, g,
+                                  want_factor=True, design='shared')
+      turns = [_device_profile(torch, f, 100) for f in (fn, prev, prev, fn)]
+      ran = {_ran_design(names) for _, names in turns[::3]}
+      ran_prev = {_ran_design(names) for _, names in turns[1:3]}
+      check(ran == {lc._design(n, h.dtype)} == {'registers'} and
+            ran_prev == {'shared'},
+            f'{name} at n={n}: ran {ran}, previous {ran_prev}')
+      ms = (turns[0][0] + turns[3][0]) / 2
+      extra = {'design': ran.pop(),
+               'previous_design': 'shared',
+               'previous_design_ms': (turns[1][0] + turns[2][0]) / 2,
+               'turns_ms': {'design': [turns[0][0], turns[3][0]],
+                            'previous_design': [turns[1][0], turns[2][0]]}}
+    else:
+      ms = _device_ms(torch, fn, 100)
+      extra = {'design': 'shared'}
     bound_ms, bound_by = _bound(B_PLAN, n, 4, kind)
     rows[name] = {
         'max_abs_err': max(checks[name][s] for s in sets), 'ms': ms,
-        'kernel_ms': ms, 'plain_ms': _device_ms(torch, plain, 5),
+        'kernel_ms': ms, **extra, 'plain_ms': _device_ms(torch, plain, 5),
         'bound_ms': bound_ms, 'bound_by': bound_by,
         'library_ms': _device_ms(torch, lib, 50),
         'call_ms': _call_ms(torch, fn, 100), 'shape': [B_PLAN, n, n],
         'dtype': 'float32'}
+  checks['rank_deficient'] = _rank_deficient_checks(torch, lc, n, dev, gen)
   emit({'phase': 'kernel_checks', 'errors': checks})
   return rows
+
+
+def _rank_deficient_checks(torch, lc, n, dev, gen):
+  """K1 and K2 against their plain versions on a rank-deficient batch:
+  seeded SPD matrices with every third dof's row and column zeroed (a dof
+  the Hessian does not see).  Those pivots are exact zeros at every step,
+  so the clamp rsqrt(max(a_kk, 1e-12)) gives 1e6 in both versions and the
+  outputs stay finite (x_k = g_k 1e12 there).  x and K1's factor agree
+  with the plain versions on the kept and on the zeroed dofs, each part to
+  1e-4 of its own max-abs.  (A V V^T batch of rank 2 is no test of the clamp in float32:
+  its Schur complement is rounding noise, the noise's negative pivots
+  grow the next ones, and kernel and plain version both overflow.)"""
+  a = torch.randn(B_PLAN, n, n, generator=gen, dtype=torch.float64)
+  h = a @ a.transpose(1, 2) / n + torch.eye(n, dtype=torch.float64)
+  keep = (torch.arange(n) % 3 != 1).double()
+  h = (h * keep[:, None] * keep[None, :]).to(dev).float()
+  g = torch.randn(B_PLAN, n, generator=gen, dtype=torch.float64).to(
+      dev).float()
+  x, fac = lc.cholesky_solve_factor(h, g)
+  x_p, fac_p = lc.solve_factor_plain(h, g)
+  x2 = lc.cholesky_resolve_const(fac_p, g)
+  x2_p = lc.resolve_plain(fac_p, g)
+  for what, t in (('K1 x', x), ('K1 factor', fac), ('K2 x', x2)):
+    check(bool(torch.isfinite(t).all()), f'{what} not finite, rank-deficient')
+  # The kept dofs' values are O(1) and the zeroed dofs' ~1e12 (x) or 1e6
+  # (the factor's diagonal): each part is held to 1e-4 of its own max-abs.
+  kept = keep.bool().to(dev)
+  low = torch.tril(torch.ones(n, n, dtype=torch.bool, device=dev))
+  fac_kept = low & kept[:, None] & kept[None, :]
+  parts = {'K1_x': (x, x_p, kept), 'K2_x': (x2, x2_p, kept),
+           'K1_factor': (fac, fac_p, fac_kept)}
+  errs = {'zeroed_dofs': int(n - keep.sum().item())}
+  for what, (got, want, mask) in parts.items():
+    other = (low & ~fac_kept) if what == 'K1_factor' else ~mask
+    for part, m in (('kept', mask), ('zeroed', other)):
+      err = (got[:, m] - want[:, m]).abs().max().item()
+      scale = want[:, m].abs().max().item()
+      check(err <= 1e-4 * scale,
+            f'{what} vs plain on the {part} dofs, rank-deficient: {err} > '
+            f'1e-4 * {scale}')
+      errs[f'{what}_{part}'] = err
+      errs[f'{what}_{part}_scale'] = scale
+  return errs
+
+
+def phase_juggle_size(torch, pkg, dev):
+  """K1 and K2 at juggle's nv = 62 (no port path reaches it yet): the
+  design that ran, device time beside the bound, and agreement with the
+  plain versions on seeded SPD matrices."""
+  lc = pkg['linalg_cuda']
+  n = JUGGLE_NV
+  gen = torch.Generator().manual_seed(SEED + 5)
+  a = torch.randn(B_PLAN, n, n, generator=gen, dtype=torch.float64)
+  h = ((a @ a.transpose(1, 2)) / n + torch.eye(n, dtype=torch.float64)).to(
+      dev).float()
+  g = torch.randn(B_PLAN, n, generator=gen, dtype=torch.float64).to(
+      dev).float()
+  fac = lc.factor_plain(h)
+  out = {}
+  for name, fn, plain, kind in (
+      ('cholesky_solve_factor', lambda: lc.cholesky_solve_factor(h, g)[0],
+       lambda: lc.solve_factor_plain(h, g)[0], 'solve_factor'),
+      ('cholesky_resolve_const', lambda: lc.cholesky_resolve_const(fac, g),
+       lambda: lc.resolve_plain(fac, g), 'resolve')):
+    want = plain()
+    err = (fn() - want).abs().max().item()
+    scale = want.abs().max().item()
+    check(err <= 1e-4 * scale, f'{name} at n={n}: {err} > 1e-4 * {scale}')
+    ms, names = _device_profile(torch, fn, 100)
+    ran = _ran_design(names)
+    check(ran == lc._design(n, h.dtype), f'{name} at n={n} ran {ran}')
+    bound_ms, bound_by = _bound(B_PLAN, n, 4, kind)
+    out[name] = {'design': ran, 'ms': ms, 'bound_ms': bound_ms,
+                 'bound_by': bound_by, 'max_abs_err': err, 'scale': scale}
+  emit({'phase': 'juggle_size', 'shape': [B_PLAN, n, n], 'dtype': 'float32',
+        'kernels': out})
 
 
 def _tree_inputs(torch, data, dtype):
@@ -764,7 +929,7 @@ def phase_profile(torch, pkg, main):
                                     'device_ms': e.device_time_total / 1e3}
             for e in events
             if e.key.startswith('stage:') and e.device_type == DeviceType.CPU}
-  chol = [k for k in kern if 'cholesky_kernel' in k[2]]
+  chol = [k for k in kern if 'cholesky' in k[2]]
   emit({'phase': 'profile',
         'window': f'one planning control step, B={B_PLAN}',
         'wall_ms': wall_ms, 'device_busy_ms': busy_us / 1e3,
@@ -835,6 +1000,7 @@ def main():
   factor_launches = phase_factor_entry(torch, pkg, main_out)
   rows = phase_kernels(torch, pkg, main_out)
   rows.update(tree_rows)
+  phase_juggle_size(torch, pkg, main_out['model'].device)
   path_launches = {'main_path': planner_out['launches'],
                    'environment_model': env_launches,
                    'entry:cholesky_factor': factor_launches,

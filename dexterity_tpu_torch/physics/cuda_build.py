@@ -25,7 +25,8 @@ _BUILD_ROOT = Path(__file__).resolve().parents[2] / 'build' / \
     'dexterity_tpu_torch'
 
 # Build record: library paths, wall seconds of the parallel build (0 when
-# every library was already built) and each nvcc's output.
+# every library was already built) and each nvcc's output (kept beside its
+# library, so a later process reads it too).
 build_info: Dict[str, object] = {}
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -80,11 +81,16 @@ def build_all() -> Dict[str, ctypes.CDLL]:
       if proc.returncode != 0:
         failed.append(f'{name} (rc {proc.returncode}):\n{logs[name]}')
       else:
+        so.with_suffix('.log').write_text(logs[name])
         os.replace(tmp, so)
     if failed:
       raise RuntimeError('nvcc failed for ' + '\n'.join(failed))
     libs = {name: ctypes.CDLL(str(out_dir / f'libdex_{name}.so'))
             for name in srcs}
+    for name in srcs:
+      if name not in logs:    # built earlier: its nvcc output lies beside it
+        log = out_dir / f'libdex_{name}.log'
+        logs[name] = log.read_text() if log.exists() else ''
     build_info.update(dir=str(out_dir), seconds=time.perf_counter() - t0,
                       built=sorted(procs), log=logs)
     _libs.update(libs)

@@ -1,8 +1,8 @@
 """Batched small-matrix Cholesky kernels: hand-written CUDA kernels for
 Hopper (port of dexterity_tpu/physics/linalg_pallas.py).
 
-Four kernels, one source (`csrc/cholesky.cu`), each beside its plain
-PyTorch version:
+Four kernels in two sources (`csrc/cholesky_regs.cu`, `csrc/cholesky.cu`),
+each beside its plain PyTorch version:
 
   cholesky_solve_factor   <- linalg_pallas._solve_factor_kernel (K1)
   cholesky_resolve_const  <- linalg_pallas._resolve_kernel      (K2)
@@ -28,9 +28,19 @@ Bound on the card: at the planner's shapes (B = 1024, n = 30, float32) K1
 moves 2·B·n²·4 bytes (~7.4 MB, ~2.2 us at 3.35 TB/s), K4 the same; K2 and
 K3 read about half that.  Their ~n³/3 FMAs per matrix are far below the
 FP32 rate, so the bound is memory, but the kernels are latency-bound along
-the n-step serial pivot chain.  The design keeps each matrix in one warp's
-shared memory (see the source's header) so a pivot costs a warp barrier,
-not a block barrier.
+the n-step serial pivot chain.  Two designs, one warp per matrix in both
+(see the sources' headers):
+
+  'registers'  `csrc/cholesky_regs.cu`: K1 and K2 at n <= 32, a row per
+               lane in registers, the pivot loop unrolled with no branch;
+               the main path (n = 30, float32) runs it.
+  'shared'     `csrc/cholesky.cu`: the matrix in shared memory, one
+               __syncwarp() per pivot: K3, K4, and K1/K2 beyond n = 32.
+
+`_design(n, dtype)` picks K1's and K2's from the shape and type alone; no
+switch overrides it on the public wrappers.  `_launch(..., design=...)`
+runs either design at the same inputs, so a card run can time the shared
+design beside the register one.
 
 The kernels are built at first use by `cuda_build` (nvcc, sm_90a, ctypes).
 No gradients are defined here.
@@ -39,7 +49,6 @@ No gradients are defined here.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
@@ -49,6 +58,10 @@ _MODE_SOLVE = 0
 _MODE_SOLVE_FACTOR = 1
 _MODE_RESOLVE = 2
 _MODE_FACTOR = 3
+
+# Largest n of the register design: one row per lane.  (Its code with two
+# rows per lane, n <= 64, spills K1 in both types; see cholesky_regs.cu.)
+_REG_MAX_N = 32
 
 # Shared memory one block may use on Hopper (227 KB).
 _MAX_SMEM = 232448
@@ -60,8 +73,8 @@ _WARPS_PER_BLOCK = 4
 launches = {'cholesky_solve_factor': 0, 'cholesky_resolve_const': 0,
             'cholesky_solve': 0, 'cholesky_factor': 0}
 
-_lib = None
-_lock = threading.Lock()
+# The C entry of each design, bound after the first build.
+_fns: dict = {}
 
 
 def reset_launches() -> None:
@@ -69,31 +82,46 @@ def reset_launches() -> None:
     launches[k] = 0
 
 
-def build() -> ctypes.CDLL:
-  """Builds (if a source changed) and loads the kernel library."""
-  global _lib
-  with _lock:
-    if _lib is None:
-      lib = cuda_build.library('cholesky')
-      lib.dex_cholesky.restype = ctypes.c_int
-      lib.dex_cholesky.argtypes = [
+def build() -> dict:
+  """Builds (if a source changed) and loads both kernel libraries; later
+  calls return their entry points without a lock (cuda_build holds one over
+  the build).  'shared': csrc/cholesky.cu, 'registers':
+  csrc/cholesky_regs.cu; the two take the same arguments."""
+  if not _fns:
+    fns = {'shared': cuda_build.library('cholesky').dex_cholesky,
+           'registers': cuda_build.library('cholesky_regs').dex_cholesky_regs}
+    for fn in fns.values():
+      fn.restype = ctypes.c_int
+      fn.argtypes = [
           ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
           ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
           ctypes.c_int, ctypes.c_void_p]
-      _lib = lib
-    return _lib
+    _fns.update(fns)
+  return _fns
 
 
-def _warp_smem_bytes(n: int, elem_bytes: int) -> int:
-  # Mirrors warp_smem_elems in the source: odd-stride matrix plus the rhs.
-  # Were the two to differ, the launch would fail and the wrapper raise.
+def _design(n: int, dtype: torch.dtype) -> str:
+  """The design K1 and K2 run at (n, dtype): 'registers' or 'shared'."""
+  real = dtype in (torch.float32, torch.float64)
+  return 'registers' if real and 1 <= n <= _REG_MAX_N else 'shared'
+
+
+def _warp_smem_bytes(n: int, elem_bytes: int, design: str) -> int:
+  # Mirrors regs_warp_smem_bytes (cholesky_regs.cu) and warp_smem_elems
+  # (cholesky.cu).  Were the two to differ, the launch would fail and the
+  # wrapper raise.
+  if design == 'registers':
+    cols = 32 * (32 + 16 // elem_bytes) * elem_bytes
+    return 16 + cols + ((n * n + 32) * elem_bytes + 15) // 16 * 16
   return (n * (n | 1) + n) * elem_bytes
 
 
 def _launch(mode: int, name: str, a: torch.Tensor, g=None,
-            want_factor: bool = False):
+            want_factor: bool = False, design: str | None = None):
   """Checks the operands and launches one kernel on the current stream.
-  Returns x, (x, factor) or, with no rhs, the factor alone."""
+  Returns x, (x, factor) or, with no rhs, the factor alone.  `design`
+  None takes `_design` for K1/K2 and 'shared' for K3/K4; the public
+  wrappers never pass it."""
   if a.dtype not in (torch.float32, torch.float64):
     raise TypeError(f'{name}: dtype {a.dtype} is not float32/float64')
   if a.dim() < 2 or a.shape[-2] != a.shape[-1]:
@@ -105,34 +133,50 @@ def _launch(mode: int, name: str, a: torch.Tensor, g=None,
     if g.shape[-1:] != (n,) or a.shape[:-2] != g.shape[:-1]:
       raise ValueError(f'{name}: shapes {tuple(a.shape)} / '
                        f'{tuple(g.shape)}')
+  regs_modes = (_MODE_SOLVE_FACTOR, _MODE_RESOLVE)
+  if design is None:
+    design = _design(n, a.dtype) if mode in regs_modes else 'shared'
+  elif design == 'registers' and (mode not in regs_modes or
+                                  not 1 <= n <= _REG_MAX_N):
+    raise ValueError(f'{name}: no register design at n={n}, {a.dtype}')
   elem = a.element_size()
-  per_warp = _warp_smem_bytes(n, elem)
+  per_warp = _warp_smem_bytes(n, elem, design)
   if per_warp > _MAX_SMEM:
     raise ValueError(f'{name}: n={n} needs {per_warp} B of shared memory '
                      f'per matrix (limit {_MAX_SMEM})')
-  lib = build()
+  fn = _fns.get(design) or build()[design]
   wpb = max(1, min(_WARPS_PER_BLOCK, _MAX_SMEM // per_warp))
-  batch_shape = a.shape[:-2]
-  a2 = a.reshape(-1, n, n).contiguous()
-  b = a2.shape[0]
-  g2 = g.reshape(-1, n).contiguous() if g is not None else None
+  # Host work per call is what the host-bound path pays: one (B, n, n)
+  # batch (the path's shape) is taken as it is, with no reshape in or out,
+  # and contiguous() returns a dense operand itself, uncopied.
+  flat = a.dim() == 3
+  a2 = (a if flat else a.reshape(-1, n, n)).contiguous()
+  g2 = None if g is None else (g if flat else g.reshape(-1, n)).contiguous()
   x = torch.empty_like(g2) if g is not None else None
   fac = torch.empty_like(a2) if want_factor else None
-  stream = torch.cuda.current_stream(a.device).cuda_stream
-
-  def ptr(t):
-    return t.data_ptr() if t is not None else None
-
-  with torch.cuda.device(a.device):
-    err = lib.dex_cholesky(mode, elem, a2.data_ptr(), ptr(g2), ptr(x),
-                           ptr(fac), b, n, wpb, stream)
+  dev = a.device
+  # The current stream's handle as an int, without the Stream object that
+  # torch.cuda.current_stream() builds around it (most of the wrapper's
+  # host time after the launch itself).
+  stream = torch._C._cuda_getCurrentRawStream(dev.index)
+  args = (mode, elem, a2.data_ptr(),
+          None if g2 is None else g2.data_ptr(),
+          None if x is None else x.data_ptr(),
+          None if fac is None else fac.data_ptr(), a2.shape[0], n, wpb,
+          stream)
+  if dev.index == torch.cuda.current_device():
+    err = fn(*args)
+  else:
+    with torch.cuda.device(dev):
+      err = fn(*args)
   if err != 0:
     raise RuntimeError(f'{name}: kernel launch failed (cudaError {err})')
   launches[name] += 1
-  fac = fac.reshape(batch_shape + (n, n)) if want_factor else None
+  if not flat:
+    x = None if x is None else x.reshape(a.shape[:-1])
+    fac = None if fac is None else fac.reshape(a.shape)
   if x is None:
     return fac
-  x = x.reshape(batch_shape + (n,))
   return (x, fac) if want_factor else x
 
 

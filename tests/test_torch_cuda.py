@@ -93,6 +93,90 @@ def test_kernel_batch_shapes_and_odd_batch():
   torch.testing.assert_close(x, LC.solve_plain(hc, gc), **_TOL[torch.float32])
 
 
+# The sizes that cover both designs of K1/K2 and their boundaries: a row
+# per lane in registers (n <= 32), the shared-memory design beyond, and the
+# two-row sizes (n <= 64) it takes over.
+_DESIGN_NS = [1, 17, 30, 31, 32, 33, 62, 64, 80]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', _DESIGN_NS)
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_k1_k2_match_plain_at_design_boundaries(dtype, n):
+  """K1 and K2, in the design `_design` picks, against their plain
+  versions on (3, 7) leading batch dims (21 matrices: the last block of 4
+  warps is not full).  K2 reads only the packed layout: garbage in the
+  upper triangle gives an identical result."""
+  _cuda()
+  h, g = _spd(11, 21, n)
+  hc = torch.as_tensor(h, dtype=dtype, device='cuda').reshape(3, 7, n, n)
+  gc = torch.as_tensor(g, dtype=dtype, device='cuda').reshape(3, 7, n)
+  tol = _TOL[dtype]
+  LC.reset_launches()
+  x, fac = LC.cholesky_solve_factor(hc, gc)
+  x_ref, fac_ref = LC.solve_factor_plain(hc, gc)
+  assert x.shape == (3, 7, n) and fac.shape == (3, 7, n, n)
+  low = torch.tril(torch.ones(n, n, dtype=torch.bool, device='cuda'))
+  torch.testing.assert_close(x, x_ref, **tol)
+  torch.testing.assert_close(fac[..., low], fac_ref[..., low], **tol)
+  x2 = LC.cholesky_resolve_const(fac, gc)
+  torch.testing.assert_close(x2, LC.resolve_plain(fac, gc), **tol)
+  upper = torch.triu(torch.full_like(fac, 1e6), 1)
+  assert torch.equal(LC.cholesky_resolve_const(fac + upper, gc), x2)
+  torch.cuda.synchronize()
+  assert LC.launches == {'cholesky_solve_factor': 1,
+                         'cholesky_resolve_const': 2, 'cholesky_solve': 0,
+                         'cholesky_factor': 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_register_and_shared_designs_agree(dtype):
+  """At the main path's shape the register design and the shared-memory
+  design (the in-run yardstick) give the same solutions and factors."""
+  _cuda()
+  n = 30
+  h, g = _spd(12, 1024, n)
+  hc = torch.as_tensor(h, dtype=dtype, device='cuda')
+  gc = torch.as_tensor(g, dtype=dtype, device='cuda')
+  tol = _TOL[dtype]
+  low = torch.tril(torch.ones(n, n, dtype=torch.bool, device='cuda'))
+  out = {}
+  for design in ('registers', 'shared'):
+    x, fac = LC._launch(LC._MODE_SOLVE_FACTOR, 'cholesky_solve_factor', hc,
+                        gc, want_factor=True, design=design)
+    x2 = LC._launch(LC._MODE_RESOLVE, 'cholesky_resolve_const', fac, gc,
+                    design=design)
+    out[design] = (x, fac[:, low], x2)
+  for got, want in zip(out['registers'], out['shared']):
+    torch.testing.assert_close(got, want, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n,dtype', [(30, torch.float32),
+                                     (33, torch.float32),
+                                     (80, torch.float32),
+                                     (32, torch.float64),
+                                     (33, torch.float64)])
+def test_design_picks_the_kernel_that_runs(n, dtype):
+  """The kernel the card runs for K1 and K2 is the one `_design` names."""
+  _cuda()
+  from torch.profiler import ProfilerActivity, profile
+  h, g = _spd(13, 8, n)
+  hc = torch.as_tensor(h, dtype=dtype, device='cuda')
+  gc = torch.as_tensor(g, dtype=dtype, device='cuda')
+  want = LC._design(n, dtype)
+  assert want == ('registers' if n <= 32 else 'shared')
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    _, fac = LC.cholesky_solve_factor(hc, gc)
+    LC.cholesky_resolve_const(fac, gc)
+    torch.cuda.synchronize()
+  names = [e.key for e in prof.key_averages() if 'cholesky' in e.key]
+  assert len(names) == 2, names
+  for name in names:
+    assert ('cholesky_regs' in name) == (want == 'registers'), name
+
+
 @pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take():
   _cuda()

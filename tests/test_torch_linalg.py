@@ -46,7 +46,11 @@ def _t(x):
   return torch.as_tensor(x, dtype=torch.float64)
 
 
-_SHAPES = [((7,), 10), ((3, 5), 8), ((4,), 30)]
+# The last four sit on the boundaries of the kernels' register design
+# (n <= 32, a row per lane) and of the two-row layout it leaves to the
+# shared-memory design (n <= 64).
+_SHAPES = [((7,), 10), ((3, 5), 8), ((4,), 30), ((2,), 1), ((2,), 32),
+           ((2,), 33), ((2,), 64)]
 
 
 @pytest.mark.parametrize('batch,n', _SHAPES)
@@ -164,3 +168,43 @@ def test_float32_plain_matches_float64():
   x32 = LC.cholesky_solve(_t(h).float(), _t(g).float()).double().numpy()
   ref = np.linalg.solve(h, g[..., None])[..., 0]
   np.testing.assert_allclose(x32, ref, rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize('n,dtype,want', [
+    (1, torch.float32, 'registers'), (30, torch.float32, 'registers'),
+    (32, torch.float32, 'registers'), (33, torch.float32, 'shared'),
+    (64, torch.float32, 'shared'), (80, torch.float32, 'shared'),
+    (300, torch.float32, 'shared'), (1, torch.float64, 'registers'),
+    (30, torch.float64, 'registers'), (32, torch.float64, 'registers'),
+    (33, torch.float64, 'shared'), (64, torch.float64, 'shared'),
+    (0, torch.float32, 'shared'), (30, torch.float16, 'shared')])
+def test_design_rule(n, dtype, want):
+  """K1/K2's design follows from (n, dtype) alone."""
+  assert LC._design(n, dtype) == want
+
+
+@pytest.mark.parametrize('mode,name', [
+    (LC._MODE_SOLVE_FACTOR, 'cholesky_solve_factor'),
+    (LC._MODE_RESOLVE, 'cholesky_resolve_const'),
+    (LC._MODE_SOLVE, 'cholesky_solve')])
+def test_launch_checks_come_before_the_card(monkeypatch, mode, name):
+  """The wrapper's checks raise before any build or card call: float16,
+  an n whose matrix does not fit in shared memory, and a register design
+  asked for where it does not exist (meta tensors, no card)."""
+  def no_build(*_):
+    raise AssertionError('the checks should have raised before a build')
+  monkeypatch.setattr(LC.cuda_build, 'build_all', no_build)
+  monkeypatch.setattr(LC, '_fns', {})
+
+  def meta(*shape, dtype=torch.float32):
+    return torch.empty(*shape, dtype=dtype, device='meta')
+
+  with pytest.raises(TypeError):
+    LC._launch(mode, name, meta(2, 4, 4, dtype=torch.float16),
+               meta(2, 4, dtype=torch.float16))
+  with pytest.raises(ValueError, match='shared memory'):
+    LC._launch(mode, name, meta(1, 300, 300), meta(1, 300))
+  with pytest.raises(ValueError, match='register design'):
+    LC._launch(mode, name, meta(1, 80, 80), meta(1, 80), design='registers')
+  with pytest.raises(ValueError):
+    LC._launch(mode, name, meta(2, 4, 5), meta(2, 4))
