@@ -8,7 +8,8 @@ non-zero otherwise, and on any failed check.  Phases, one JSON line each:
 
   0. probe: torch/CUDA versions, the card, the kernel build (one nvcc per
      csrc/*.cu source, all started together, sm_90a), and the registers
-     and spills of the register-design kernels (none may spill).
+     and spills of the register-design kernels, K1-K3 in both types (none
+     may spill).
   1. rollouts: the ShadowHand reorient planning model (4 Newton iterations,
      6 line-search steps, refactor every 2, 3 substeps, contact budget
      16/16, implicit damping, no self-collision) steps B = 1024 rollouts
@@ -17,7 +18,8 @@ non-zero otherwise, and on any failed check.  Phases, one JSON line each:
      and the first control step of 8 rollouts is held against the port run
      on the CPU in float64.
   2. environment model: one control step (5 substeps, exact Newton, Euler
-     damping solve, contact 64/64) at B = 256.
+     damping solve, contact 64/64) at B = 256: K3's 45 launches, and the
+     step's device time with K3's share of it.
   3. planner (the main path): PredictiveSampling.solve_batch at bench.py's
      configuration (4 streams x 256 samples x 2 CEM iterations, horizon
      10) from seeded starts and goals: solves/s, launches per solve, action
@@ -31,9 +33,10 @@ non-zero otherwise, and on any failed check.  Phases, one JSON line each:
      float64 reference, on seeded SPD matrices and on the Hessians the
      rollouts built, and K1/K2 on a rank-deficient batch; timed (device
      time, torch.profiler) beside its plain version, a library call and
-     its bound.  K1 and K2 also name the design that ran (`design`, from
-     the profiled kernel names) and time the shared-memory design at the
-     same inputs, in turns with it (`previous_design_ms`).
+     its bound.  K1-K3 also name the design that ran (`design`, from the
+     profiled kernel names) and time the shared-memory design at the same
+     inputs, in turns with it (`previous_design_ms`); K3 also at the
+     environment step's shape (`env_shape`).
   7. juggle size: K1 and K2 at n = 62 (the shared-memory design), checked
      against their plain versions and timed beside their bounds.
   --profile adds host and device time by stage and device time by kernel
@@ -87,7 +90,7 @@ _TREE = 'dexterity_tpu_torch/csrc/tree_sweep.cu'
 KERNELS = [
     ('cholesky_solve_factor', f'{_LP}:135', _REGS, 'main_path'),
     ('cholesky_resolve_const', f'{_LP}:291', _REGS, 'main_path'),
-    ('cholesky_solve', f'{_LP}:74', _CHOL, 'environment_model'),
+    ('cholesky_solve', f'{_LP}:74', _REGS, 'environment_model'),
     ('cholesky_factor', f'{_LP}:262', _CHOL, 'entry:cholesky_factor'),
     ('tree_sweep_fk', f'{_TP}:239', _TREE, 'entry:build_tree_sweep'),
     ('tree_sweep_dyn', f'{_TP}:449', _TREE, 'entry:build_tree_sweep'),
@@ -170,10 +173,10 @@ def phase_probe(torch, pkg, smi):
   ptxas = {name: [ln.strip() for ln in log.splitlines()
                   if 'registers' in ln or 'spill' in ln][:12]
            for name, log in logs.items()}
-  # The register design's four kernels (K1, K2 in float32 and float64):
+  # The register design's six kernels (K1, K2, K3 in float32 and float64):
   # none may spill.
   regs = _ptxas_entries(logs.get('cholesky_regs', ''), 'cholesky_regs_')
-  check(len(regs) == 4, f'register-design kernels in the ptxas log: {regs}')
+  check(len(regs) == 6, f'register-design kernels in the ptxas log: {regs}')
   for label, v in regs.items():
     check(v.get('spill_stores') == 0 and v.get('spill_loads') == 0,
           f'{label} spills: {v}')
@@ -189,7 +192,8 @@ def phase_probe(torch, pkg, smi):
 
 def _ptxas_entries(log, prefix):
   """Registers and spill bytes of each kernel whose mangled name holds
-  `prefix`, from nvcc's `-Xptxas -v` log, labelled kernel_type."""
+  `prefix`, from nvcc's `-Xptxas -v` log, labelled kernel_type (K3, the
+  solve_factor kernel without its factor, as solve_type)."""
   out, cur = {}, None
   for ln in log.splitlines():
     m = re.search(r"(?:Compiling entry function|Function properties for) "
@@ -199,8 +203,10 @@ def _ptxas_entries(log, prefix):
       if cur is not None:
         # The kernel's own name follows its length; the anonymous
         # namespace's name (which holds the file name) does not.
-        t = re.search(r'\d' + prefix + r'([a-z_]+?)I([fd])E', cur)
-        label = (f'{t.group(1)}_{"f32" if t.group(2) == "f" else "f64"}'
+        t = re.search(r'\d' + prefix + r'([a-z_]+?)I([fd])(Lb0E)?', cur)
+        kind = (t.group(1).replace('_factor', '') if t and t.group(3)
+                else t and t.group(1))
+        label = (f'{kind}_{"f32" if t.group(2) == "f" else "f64"}'
                  if t else cur)
         out.setdefault(cur, {'kernel': label})
       continue
@@ -347,9 +353,18 @@ def phase_env(torch, pkg, task):
   finite = bool(torch.isfinite(out.qpos).all() and
                 torch.isfinite(out.qvel).all())
   check(finite, 'non-finite state after the environment step')
+  # Device time of one control step (summed kernel durations) and K3's
+  # share of it, with the design K3 ran.
+  step_ms, by_kernel = _device_profile(
+      torch, lambda: step.step_n_b(model, data, n, refresh='none'), 1)
+  k3 = {k: v for k, v in by_kernel.items() if 'cholesky' in k}
+  k3_ms = sum(k3.values())
+  check(_ran_design(k3) == 'registers', f'K3 ran {list(k3)}')
   emit({'phase': 'environment_model', 'batch': B_ENV, 'substeps': n,
         'launches': launches, 'finite': finite, 'wall_s_per_control_step':
-        wall, 'npair': model.npair})
+        wall, 'npair': model.npair, 'device_ms_per_control_step': step_ms,
+        'k3_device_ms': k3_ms, 'k3_share': k3_ms / step_ms,
+        'k3_design': _ran_design(k3)})
   return launches
 
 
@@ -371,7 +386,8 @@ def _call_ms(torch, fn, reps):
 def _device_profile(torch, fn, reps):
   """Per-call device time of `fn` (the summed durations of the kernels it
   launches over `reps` calls, from torch.profiler; host work and waits
-  between kernels are not counted) and the names of those kernels."""
+  between kernels are not counted) and each kernel's per-call time by
+  name."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
   fn()
@@ -387,7 +403,8 @@ def _device_profile(torch, fn, reps):
             if e.device_type == DeviceType.CUDA]
     us = sum(e.self_device_time_total for e in kern)
     if us > 0:
-      return us / 1e3 / reps, [e.key for e in kern]
+      return us / 1e3 / reps, {e.key: e.self_device_time_total / 1e3 / reps
+                               for e in kern}
   check(False, 'the profiler saw no device time in three passes')
 
 
@@ -428,7 +445,7 @@ def _roofline(nbytes, flops, elem):
   return (max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations')
 
 
-def _tree_bounds(tc, model, b, elem):
+def _tree_bounds(smooth, model, b, elem):
   """(K5, K6) bounds: rows read and written once; flops counted from the
   kernels' arithmetic per item (rounded up)."""
   nb, nv, nq, ng = model.nbody, model.nv, model.nq, model.ngeom
@@ -436,14 +453,8 @@ def _tree_bounds(tc, model, b, elem):
   fk_rows = (nq + nv + 7 * nm) + (10 * nb + 6 * nv + 12 * ng + 10 * nb
                                   + 2 * nt)
   fk_flops = b * (nb * (120 + 150) + nv * 60 + ng * 90 + nt * 2 * (nq + nv))
-  # Entries of the CRB pattern: the length of each dof's ancestor walk.
-  parent = tc._dof_parent(model)
-  pattern = 0
-  for w in range(nv):
-    v = w
-    while v >= 0:
-      pattern += 1
-      v = parent[v]
+  # Entries of the CRB pattern (upper triangle and diagonal).
+  pattern = int(smooth._dof_upper_mask_np(model).sum())
   dyn_rows = (6 * nv + 10 * nb + nv) + (nv * nv + nv)
   dyn_flops = b * (10 * nb + nv * 36 + pattern * 12 + nv * (12 + 40)
                    + nb * (12 + 72 + 30 + 6 + 6) + nv * 12)
@@ -545,30 +556,31 @@ def phase_kernels(torch, pkg, main):
       kind = 'solve'
     # The library yardstick uses cholesky_ex, which does not synchronise to
     # check for failure (torch.linalg.cholesky does).
-    if name == 'cholesky_solve_factor' or name == 'cholesky_resolve_const':
-      # The design the wrapper ran, and the shared-memory design at the same
-      # inputs, timed in turns: new, previous, previous, new.
-      if name == 'cholesky_resolve_const':
-        prev = lambda: lc._launch(lc._MODE_RESOLVE, name, fac, g,
-                                  design='shared')
-      else:
-        prev = lambda: lc._launch(lc._MODE_SOLVE_FACTOR, name, h, g,
-                                  want_factor=True, design='shared')
-      turns = [_device_profile(torch, f, 100) for f in (fn, prev, prev, fn)]
-      ran = {_ran_design(names) for _, names in turns[::3]}
-      ran_prev = {_ran_design(names) for _, names in turns[1:3]}
-      check(ran == {lc._design(n, h.dtype)} == {'registers'} and
-            ran_prev == {'shared'},
-            f'{name} at n={n}: ran {ran}, previous {ran_prev}')
-      ms = (turns[0][0] + turns[3][0]) / 2
-      extra = {'design': ran.pop(),
-               'previous_design': 'shared',
-               'previous_design_ms': (turns[1][0] + turns[2][0]) / 2,
-               'turns_ms': {'design': [turns[0][0], turns[3][0]],
-                            'previous_design': [turns[1][0], turns[2][0]]}}
-    else:
+    if name == 'cholesky_factor':
       ms = _device_ms(torch, fn, 100)
       extra = {'design': 'shared'}
+    else:
+      mode = {'cholesky_solve_factor': lc._MODE_SOLVE_FACTOR,
+              'cholesky_resolve_const': lc._MODE_RESOLVE,
+              'cholesky_solve': lc._MODE_SOLVE}[name]
+      src = fac if name == 'cholesky_resolve_const' else h
+      prev = lambda: lc._launch(mode, name, src, g, design='shared',
+                                want_factor=name == 'cholesky_solve_factor')
+      ms, extra = _design_turns(torch, lc, name, n, fn, prev)
+    if name == 'cholesky_solve':
+      # K3 at the environment step's shape as well: its first B_ENV
+      # matrices (a contiguous slice).
+      he, ge = h[:B_ENV], g[:B_ENV]
+      env_ms, env_extra = _design_turns(
+          torch, lc, name, n, lambda: lc.cholesky_solve(he, ge),
+          lambda: lc._launch(lc._MODE_SOLVE, name, he, ge, design='shared'))
+      env_bound, env_by = _bound(B_ENV, n, 4, 'solve')
+      extra['env_shape'] = {
+          'shape': [B_ENV, n, n], 'ms': env_ms,
+          'previous_design_ms': env_extra['previous_design_ms'],
+          'turns_ms': env_extra['turns_ms'], 'bound_ms': env_bound,
+          'bound_by': env_by,
+          'call_ms': _call_ms(torch, lambda: lc.cholesky_solve(he, ge), 100)}
     bound_ms, bound_by = _bound(B_PLAN, n, 4, kind)
     rows[name] = {
         'max_abs_err': max(checks[name][s] for s in sets), 'ms': ms,
@@ -580,6 +592,24 @@ def phase_kernels(torch, pkg, main):
   checks['rank_deficient'] = _rank_deficient_checks(torch, lc, n, dev, gen)
   emit({'phase': 'kernel_checks', 'errors': checks})
   return rows
+
+
+def _design_turns(torch, lc, name, n, fn, prev):
+  """The design the wrapper ran (`fn`) and the shared-memory design at the
+  same inputs (`prev`), timed in turns: new, previous, previous, new.
+  Returns (ms, the row's design fields); fails unless the wrapper ran the
+  register design, as `_design` says it must at this n."""
+  turns = [_device_profile(torch, f, 100) for f in (fn, prev, prev, fn)]
+  ran = {_ran_design(names) for _, names in turns[::3]}
+  ran_prev = {_ran_design(names) for _, names in turns[1:3]}
+  check(ran == {lc._design(n, torch.float32)} == {'registers'} and
+        ran_prev == {'shared'},
+        f'{name} at n={n}: ran {ran}, previous {ran_prev}')
+  return (turns[0][0] + turns[3][0]) / 2, {
+      'design': 'registers', 'previous_design': 'shared',
+      'previous_design_ms': (turns[1][0] + turns[2][0]) / 2,
+      'turns_ms': {'design': [turns[0][0], turns[3][0]],
+                   'previous_design': [turns[1][0], turns[2][0]]}}
 
 
 def _rank_deficient_checks(torch, lc, n, dev, gen):
@@ -737,7 +767,7 @@ def phase_tree_sweep(torch, pkg, main):
           model, *pre_args), 5),
       call_ms=_call_ms(torch, lambda: step._precompute_planes(
           model, *pre_args), 5))
-  bounds = _tree_bounds(tc, model, b, 4)
+  bounds = _tree_bounds(pkg['smooth'], model, b, 4)
   rows = {}
   for (name, t), (bound_ms, bound_by) in zip(timing.items(), bounds):
     rows[name] = {

@@ -13,8 +13,8 @@
 // applies one rank-1 trailing update per pivot, each a warp-wide step
 // closed by __syncwarp(); the forward and back substitutions run one pivot
 // per step across the lanes.  Several warps (independent matrices) share a
-// block.  It serves K3 and K4, and K1/K2 at sizes beyond the register
-// design of cholesky_regs.cu (n > 32).
+// block.  It serves K4, and K1-K3 at sizes beyond the register design of
+// cholesky_regs.cu (n > 32).
 //
 // Numerics match the Pallas kernels: pivot clamp rsqrt(max(a_kk, 1e-12)),
 // the same column scaling and rank-1 update order, and the same packed

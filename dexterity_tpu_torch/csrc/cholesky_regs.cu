@@ -1,12 +1,16 @@
 // Batched small dense Cholesky kernels for Hopper (sm_90a), register
-// design: K1 and K2 of the planner's Newton solve.
+// design: K1 and K2 of the planner's Newton solve, K3 of the environment
+// step's.
 //
 // Port of dexterity_tpu/physics/linalg_pallas.py:
+//   MODE_SOLVE        <- _kernel               (cholesky_solve, K3)
 //   MODE_SOLVE_FACTOR <- _solve_factor_kernel  (cholesky_solve_factor, K1)
 //   MODE_RESOLVE      <- _resolve_kernel       (cholesky_resolve_const,
 //                                               cholesky_resolve, K2)
-// cholesky.cu holds the shared-memory design, which serves K3, K4 and
-// these two modes at n > 32.
+// K3 is K1 without the packed factor's store: one kernel, whose template
+// flag kEmitFactor drops the factor's writes to the stage and its bulk
+// store.  cholesky.cu holds the shared-memory design, which serves K4 and
+// these three modes at n > 32.
 //
 // Numerics match the Pallas kernels: right-looking order, pivot clamp
 // rsqrt(max(a_kk, 1e-12)), the same column scaling and rank-1 update order,
@@ -17,8 +21,8 @@
 // rows per lane, for n <= 64, spills K1 in both types under ptxas 12.8, so
 // those sizes stay on cholesky.cu.)  What
 // bounds it on this card: at the planner's shapes (B = 1024, n = 30,
-// float32) K1 moves 2 B n^2 4 bytes (7.4 MB, 2.2 us at 3.35 TB/s) and K2
-// half that; the n^3 / 3 FMAs per matrix are far below the FP32 rate.  So
+// float32) K1 moves 2 B n^2 4 bytes (7.4 MB, 2.2 us at 3.35 TB/s), K2 and
+// K3 half that; the n^3 / 3 FMAs per matrix are far below the FP32 rate.  So
 // the floor is bytes, and what stands above it is the latency of the
 // n-step dependent chain (pivot k + 1 needs pivot k's update).  What the
 // design does about each:
@@ -54,6 +58,7 @@
 namespace {
 
 constexpr int kWarp = 32;
+constexpr int MODE_SOLVE = 0;
 constexpr int MODE_SOLVE_FACTOR = 1;
 constexpr int MODE_RESOLVE = 2;
 constexpr int kRegsMaxWarps = 4;
@@ -214,9 +219,10 @@ __device__ __forceinline__ T back_substitute(T y, const T (&c)[32],
   return y;
 }
 
-// K1: solve + packed factor.  One resident block per SM is asked for, so
-// ptxas may take up to 255 registers.
-template <typename T>
+// K1 (kEmitFactor): solve + packed factor; K3: the solve alone.  One
+// resident block per SM is asked for, so ptxas may take up to 255
+// registers.
+template <typename T, bool kEmitFactor>
 __global__ void __launch_bounds__(kRegsMaxWarps * kWarp, 1)
     cholesky_regs_solve_factor(const T* __restrict__ a_in,
                                const T* __restrict__ g_in,
@@ -246,7 +252,7 @@ __global__ void __launch_bounds__(kRegsMaxWarps * kWarp, 1)
 
   // Right-looking factor with the forward substitution L y = g fused in.
   // Column k of the packed factor is final at pivot k and goes into the
-  // stage at once, so a[k] is dead from then on.
+  // stage at once (K1), so a[k] is dead from then on.
   T* srow = s + (lane < n ? lane : 0) * n;
   T inv_diag = T(1);
   T inv = clamp_rsqrt(bcast(a[0], 0));
@@ -263,7 +269,8 @@ __global__ void __launch_bounds__(kRegsMaxWarps * kWarp, 1)
     const T lik = a[k] * inv;
     const T lm = below ? lik : T(0);  // l_ik below the pivot, 0 elsewhere
     col[lane] = lm;
-    if (k < n && lane < n && lane >= k) srow[k] = at ? inv : lik;
+    if (kEmitFactor && k < n && lane < n && lane >= k)
+      srow[k] = at ? inv : lik;
     y = at ? yk : fma(-lm, yk, y);
     inv_diag = at ? inv : inv_diag;
     if (k + 1 < 32) {
@@ -286,8 +293,12 @@ __global__ void __launch_bounds__(kRegsMaxWarps * kWarp, 1)
     if ((k + 1) % kFence == 0 && n < 0) __trap();
   }
 
-  // The stage now holds the packed factor: out with one bulk store.
-  stage_out(fac_out + mat * nn, s, n * n, lane);
+  // The stage now holds the packed factor: out with one bulk store.  K3
+  // only makes the last column's writes visible to the warp.
+  if (kEmitFactor)
+    stage_out(fac_out + mat * nn, s, n * n, lane);
+  else
+    __syncwarp();
 
   // Column `lane` of L, from the columns of the factor loop.
   T c[32];
@@ -303,7 +314,7 @@ __global__ void __launch_bounds__(kRegsMaxWarps * kWarp, 1)
   }
   y = back_substitute<T>(y, c, inv_diag, lane);
   if (lane < n) x_out[mat * n + lane] = y;
-  stage_out_wait(lane);
+  if (kEmitFactor) stage_out_wait(lane);
 }
 
 // K2: resolve against a packed factor staged in shared memory: row i of L
@@ -360,7 +371,7 @@ cudaError_t allow_smem(KernelT kernel, size_t smem) {
 template <typename T>
 int dispatch_regs(int mode, const void* a, const void* g, void* x, void* fac,
                   int64_t batch, int n, int warps_per_block, void* stream) {
-  if ((mode != MODE_SOLVE_FACTOR && mode != MODE_RESOLVE) || n < 1 ||
+  if (mode < MODE_SOLVE || mode > MODE_RESOLVE || n < 1 ||
       n > 32 || warps_per_block < 1 || warps_per_block > kRegsMaxWarps)
     return (int)cudaErrorInvalidValue;
   if (batch <= 0) return (int)cudaSuccess;
@@ -369,8 +380,10 @@ int dispatch_regs(int mode, const void* a, const void* g, void* x, void* fac,
   const int64_t blocks = (batch + warps_per_block - 1) / warps_per_block;
   const dim3 grid((unsigned)blocks), block(warps_per_block * kWarp);
   cudaStream_t st = (cudaStream_t)stream;
-  if (mode == MODE_SOLVE_FACTOR) {
-    auto kernel = cholesky_regs_solve_factor<T>;
+  if (mode != MODE_RESOLVE) {
+    auto kernel = mode == MODE_SOLVE_FACTOR
+                      ? cholesky_regs_solve_factor<T, true>
+                      : cholesky_regs_solve_factor<T, false>;
     const cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return (int)err;
     kernel<<<grid, block, smem, st>>>((const T*)a, (const T*)g, (T*)x,
@@ -389,11 +402,11 @@ int dispatch_regs(int mode, const void* a, const void* g, void* x, void* fac,
 
 extern "C" {
 
-// mode: 1 solve + packed factor (K1), 2 resolve against a packed factor
-// (K2); 1 <= n <= 32, at most 4 warps per block.  elem_bytes: 4 (float) or
-// 8 (double).  a: (batch, n, n) matrices or packed factors; g: (batch, n);
-// x: (batch, n) out; fac: (batch, n, n) out (mode 1).  Returns the
-// cudaError_t of the launch (0 on success).
+// mode: 0 solve (K3), 1 solve + packed factor (K1), 2 resolve against a
+// packed factor (K2); 1 <= n <= 32, at most 4 warps per block.
+// elem_bytes: 4 (float) or 8 (double).  a: (batch, n, n) matrices or packed
+// factors; g: (batch, n); x: (batch, n) out; fac: (batch, n, n) out (mode 1,
+// else unused).  Returns the cudaError_t of the launch (0 on success).
 int dex_cholesky_regs(int mode, int elem_bytes, const void* a, const void* g,
                       void* x, void* fac, int64_t batch, int n,
                       int warps_per_block, void* stream) {

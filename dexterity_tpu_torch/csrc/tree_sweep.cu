@@ -20,27 +20,27 @@
 // of rollouts: one thread per rollout walks the bodies in index order,
 // parents first, composing world poses into shared memory; after a barrier
 // the CTA's threads spread over (body | dof | geom | tendon, rollout) items
-// to write the outputs.  K6 runs one thread per rollout: composite inertias
-// accumulate children-into-parents in shared memory, each dof walks its
-// ancestor dofs to fill qm, then the RNE forward (cvel, cacc) and backward
-// (forces) sweeps give qfrc_bias.
+// to write the outputs.  K6 keeps _kernel_dyn's formulation, each recursion
+// a gather over static tables: a CTA per 8 rollouts (128 CTAs at B = 1024)
+// whose 512 threads share every phase (see K6 below).
 //
 // Bound: at the reorient planning model and B = 1024 (float32), K5 moves
 // ~15.4 MB (4.6 us at 3.35 TB/s) and K6 ~6.0 MB (1.8 us); their arithmetic is
-// far below the FP32 rate, so both are memory-bound on paper.  In practice
-// they are latency-bound along the serial per-rollout chains (the body walk
-// in K5, the CRB and RNE sweeps in K6), and B = 1024 gives K6 only 32 warps
-// on 132 SMs.  Faster designs split a rollout's work over a warp.
+// far below the FP32 rate, so both are memory-bound on paper.  K5 is
+// latency-bound along its serial per-rollout body walk.  K6's phases are
+// short independent sums; what stands above its bound is the latency of
+// six dependent phases and of its loads, which cp.async issues all at once.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+// K6's int segments (I_DOF_BODY .. I_QM_KIND) come last, one block.
 enum IntSeg {
-  I_BODY_PARENT, I_BODY_JTYPE, I_BODY_QADR, I_BODY_DADR, I_BODY_DOFNUM,
-  I_BODY_MOCAP, I_DOF_BODY, I_DOF_JTYPE, I_DOF_JOFS, I_DOF_PARENT,
-  I_GEOM_BODY, N_INT_SEGS
+  I_BODY_PARENT, I_BODY_JTYPE, I_BODY_QADR, I_BODY_MOCAP, I_DOF_JTYPE,
+  I_DOF_JOFS, I_GEOM_BODY, I_DOF_BODY, I_BODY_SUB_PTR, I_BODY_SUB,
+  I_BODY_ANCDOF_PTR, I_BODY_ANCDOF, I_QM_KIND, N_INT_SEGS
 };
 enum FloatSeg {
   F_BODY_POS, F_BODY_QUAT, F_BODY_JAXIS, F_BODY_JPOS, F_BODY_IPOS,
@@ -358,147 +358,379 @@ __global__ void tree_fk_kernel(Tables<T> tab, Dims d,
 }
 
 // ---------------------------------------------------------------------------
-// K6: CRB + RNE.  One thread per rollout; shared memory holds 12 rows per
-// body for the thread, [(k * nbody + b) * tile + t]: the composite inertias
-// (k < 10) during CRB, then cvel (k < 6) and the ancestor sum of
-// cdof_dot * qvel, later the body forces (6 <= k < 12), during RNE.
+// K6: CRB + RNE in _kernel_dyn's formulation: every recursion over the tree
+// is a gather over static tables (each body's subtree, each body's
+// ancestor-or-self dofs, the kind of each qm entry), so every output element
+// is an independent short sum and no two threads write one place.  A CTA
+// takes kDynTile rollouts and runs six phases, one __syncthreads() between
+// them.  The sums over a subtree or the ancestor dofs (composite inertias,
+// velocities, force totals) and qfrc_bias give each thread one row for the
+// whole tile, moved as 16-byte vectors (TileRow): the row's list is read
+// once, not once per rollout, and the tile's rollouts are independent work
+// within the thread.  qm and the 6-vector arithmetic (f and tau per dof,
+// the body forces) give each thread one (row, rollout); on the card, a row
+// per thread made the qm phase slower.  The tables are staged in shared
+// memory with the inputs: read from global memory, each dependent index
+// load waited on an L2 round trip.
+// Shared memory holds rows of kDynTile values, [row * kDynTile + t]:
+//   cdof (6 nv rows, c * nv + v), body10 (10 nbody, k * nbody + b), qvel
+//     (nv): the tile's inputs, staged by cp.async;
+//   comp (10 nbody): composite inertias, body10 summed over the subtree;
+//     later btot (6 nbody), the body forces summed over the subtree;
+//   cvel (6 nbody): body velocities, cdof qvel over the ancestor dofs;
+//   f (6 nv): Ic_body(w) cdof_w;
+//   tau (6 nv): ((keep_v cvel_body(v)) x cdof_v) qvel_v, the bias terms;
+//   fb (6 nbody): body forces;
+// then armature, keep (nv each) and gravity (3), and K6's int tables.
+// The world body's sums are never read (no dof lies on it) and are skipped.
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__global__ void tree_dyn_kernel(Tables<T> tab, Dims d,
-                                const T* __restrict__ cdof,
-                                const T* __restrict__ body10,
-                                const T* __restrict__ qvel,
-                                T* __restrict__ qm,
-                                T* __restrict__ qfrc_bias, int64_t B) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s = reinterpret_cast<T*>(smem_raw);
-  const int tile = blockDim.x;
-  const int t = threadIdx.x;
-  const int64_t r = (int64_t)blockIdx.x * tile + t;
-  if (r >= B) return;
-  const int nb = d.nbody, nv = d.nv;
-  auto S = [&](int k, int b) -> T& {
-    return s[((size_t)k * nb + b) * tile + t];
-  };
-  auto load6 = [&](const T* a, int n, int i, T out[6]) {
-    for (int c = 0; c < 6; ++c) out[c] = a[((int64_t)c * n + i) * B + r];
-  };
-  const int* parent = tab.iseg(I_BODY_PARENT);
-  const int* dadr = tab.iseg(I_BODY_DADR);
-  const int* dofnum = tab.iseg(I_BODY_DOFNUM);
-  const int* dof_body = tab.iseg(I_DOF_BODY);
-  const int* dof_parent = tab.iseg(I_DOF_PARENT);
-  const T* armature = tab.fseg(F_DOF_ARMATURE);
-  const T* keep = tab.fseg(F_DOF_KEEP);
-  const T* grav = tab.fseg(F_GRAVITY);
+constexpr int kDynTile = 8;
 
-  // CRB: composite inertias, children into parents (parent < child).
-  for (int k = 0; k < 10; ++k)
-    for (int b = 0; b < nb; ++b) S(k, b) = body10[((int64_t)k * nb + b) * B + r];
-  for (int b = nb - 1; b > 0; --b) {
-    const int p = parent[b];
-    for (int k = 0; k < 10; ++k) S(k, p) += S(k, b);
-  }
-  // qm[v, w] = cdof_v . (Ic_body(w) cdof_w) on the upper pattern (v an
-  // ancestor dof of w, v <= w), mirrored below the diagonal; armature on
-  // the diagonal; zero elsewhere.
-  for (int i = 0; i < nv * nv; ++i) qm[(int64_t)i * B + r] = T(0);
-  for (int w = 0; w < nv; ++w) {
-    const int bw = dof_body[w];
-    T cw[6], p10[10], f[6];
-    load6(cdof, nv, w, cw);
-    for (int k = 0; k < 10; ++k) p10[k] = S(k, bw);
-    inertia_apply(p10, cw, f);
-    for (int v = w; v >= 0; v = dof_parent[v]) {
-      T cv[6];
-      load6(cdof, nv, v, cv);
-      T val = T(0);
-      for (int c = 0; c < 6; ++c) val += cv[c] * f[c];
-      if (v == w) {
-        qm[((int64_t)w * nv + w) * B + r] = val + armature[w];
+// Threads per CTA at most (the launch bound ptxas allots registers for).
+constexpr int kDynMaxThreads = 512;
+
+// Kinds of the qm entries (table I_QM_KIND): off the CRB pattern, strict
+// upper pattern, its mirror below the diagonal, diagonal.
+constexpr int kQmZero = 0;
+constexpr int kQmDiag = 3;
+
+__host__ __device__ inline int dyn_rows(int nbody, int nv) {
+  return 19 * nv + 32 * nbody;
+}
+
+// K6's shared memory in bytes: the rows, the float tables, and room for the
+// int tables, whose entries are at most those of a chain of nbody bodies
+// with all nv dofs on each (subtree lists nbody^2, ancestor-dof lists
+// nbody nv).
+__host__ __device__ inline size_t dyn_smem_bytes(int nbody, int nv,
+                                                 int elem) {
+  const size_t ints = (size_t)nv + 2 * (nbody + 1) + (size_t)nbody * nbody +
+                      (size_t)nbody * nv + (size_t)nv * nv;
+  return ((size_t)dyn_rows(nbody, nv) * kDynTile + 2 * nv + 3) * elem +
+         4 * ints;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Copies of 4, 8 or 16 bytes from global to shared memory with no register
+// round trip (cp.async); cp_async_wait() before the barrier that publishes
+// the stage.
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(__cvta_generic_to_global(src)), "n"(kBytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return ((uintptr_t)p & 15u) == 0;
+}
+
+// A tile row in registers: the kDynTile rollouts' values of one row,
+// moved between shared memory and registers as 16-byte vectors (float4 or
+// double2).
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  using type = float4;
+};
+template <>
+struct Vec16<double> {
+  using type = double2;
+};
+
+template <typename T>
+struct TileRow {
+  static constexpr int kPer16 = 16 / sizeof(T);
+  using V = typename Vec16<T>::type;
+  T v[kDynTile];
+
+  __device__ __forceinline__ void load(const T* s) {  // shared, aligned
+#pragma unroll
+    for (int i = 0; i < kDynTile / kPer16; ++i) {
+      const V x = reinterpret_cast<const V*>(s)[i];
+      if constexpr (kPer16 == 4) {
+        v[4 * i] = x.x, v[4 * i + 1] = x.y, v[4 * i + 2] = x.z,
+                  v[4 * i + 3] = x.w;
       } else {
-        qm[((int64_t)v * nv + w) * B + r] = val;
-        qm[((int64_t)w * nv + v) * B + r] = val;
+        v[2 * i] = x.x, v[2 * i + 1] = x.y;
       }
     }
   }
-
-  // RNE forward sweep: cvel (k < 6) and the ancestor sum of
-  // cdof_dot * qvel (6 <= k < 12), with cdof_dot = cvel_body x cdof; the
-  // translational dofs of a free joint take no cvel term.
-  for (int k = 0; k < 12; ++k) S(k, 0) = T(0);
-  for (int b = 1; b < nb; ++b) {
-    const int p = parent[b];
-    T cv[6], mt[6];
-    for (int c = 0; c < 6; ++c) {
-      cv[c] = S(c, p);
-      mt[c] = S(6 + c, p);
-    }
-    const int v0 = dadr[b], v1 = dadr[b] + dofnum[b];
-    for (int v = v0; v < v1; ++v) {
-      T cd[6];
-      load6(cdof, nv, v, cd);
-      const T qv = qvel[(int64_t)v * B + r];
-      for (int c = 0; c < 6; ++c) cv[c] += cd[c] * qv;
-    }
-    for (int v = v0; v < v1; ++v) {
-      T cd[6];
-      load6(cdof, nv, v, cd);
-      const T qv = qvel[(int64_t)v * B + r];
-      const T kp = keep[v];
-      const T ax = cv[0] * kp, ay = cv[1] * kp, az = cv[2] * kp;
-      const T lx = cv[3] * kp, ly = cv[4] * kp, lz = cv[5] * kp;
-      const T bx = cd[0], by = cd[1], bz = cd[2];
-      const T dx = cd[3], dy = cd[4], dz = cd[5];
-      mt[0] += (ay * bz - az * by) * qv;
-      mt[1] += (az * bx - ax * bz) * qv;
-      mt[2] += (ax * by - ay * bx) * qv;
-      mt[3] += ((ay * dz - az * dy) + (ly * bz - lz * by)) * qv;
-      mt[4] += ((az * dx - ax * dz) + (lz * bx - lx * bz)) * qv;
-      mt[5] += ((ax * dy - ay * dx) + (lx * by - ly * bx)) * qv;
-    }
-    for (int c = 0; c < 6; ++c) {
-      S(c, b) = cv[c];
-      S(6 + c, b) = mt[c];
+  __device__ __forceinline__ void store(T* s) const {  // 16-byte aligned
+#pragma unroll
+    for (int i = 0; i < kDynTile / kPer16; ++i) {
+      V x;
+      if constexpr (kPer16 == 4) {
+        x.x = v[4 * i], x.y = v[4 * i + 1], x.z = v[4 * i + 2],
+        x.w = v[4 * i + 3];
+      } else {
+        x.x = v[2 * i], x.y = v[2 * i + 1];
+      }
+      reinterpret_cast<V*>(s)[i] = x;
     }
   }
-  // Body forces f_b = I_b cacc_b + cvel_b x* (I_b cvel_b); gravity enters
-  // cacc as -g on the linear rows.
-  for (int b = 1; b < nb; ++b) {
-    T p10[10], cv[6], ca[6], iv[6], ia[6];
-    for (int k = 0; k < 10; ++k) p10[k] = body10[((int64_t)k * nb + b) * B + r];
-    for (int c = 0; c < 6; ++c) {
-      cv[c] = S(c, b);
-      ca[c] = S(6 + c, b) - (c >= 3 ? grav[c - 3] : T(0));
+  // The tile's live rollouts to a global output row (dst is rollout r0's
+  // place): vector stores where the row is whole and aligned.  (Every index
+  // into v is a constant, or v would leave the registers for local memory.)
+  __device__ __forceinline__ void put(T* dst, int live) const {
+    if (live == kDynTile && aligned16(dst)) {
+      store(dst);
+    } else {
+#pragma unroll
+      for (int t = 0; t < kDynTile; ++t)
+        if (t < live) dst[t] = v[t];
     }
+  }
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int t = 0; t < kDynTile; ++t) v[t] = T(0);
+  }
+  __device__ __forceinline__ void fma(const TileRow& x, const TileRow& y) {
+#pragma unroll
+    for (int t = 0; t < kDynTile; ++t) v[t] += x.v[t] * y.v[t];
+  }
+  __device__ __forceinline__ void add(const TileRow& x) {
+#pragma unroll
+    for (int t = 0; t < kDynTile; ++t) v[t] += x.v[t];
+  }
+};
+
+// Runs body(k, b, t) over the rows k * n + b < rows of one phase, kLanes
+// threads per row: thread tid takes lane t = tid % kLanes of every
+// (blockDim.x / kLanes)-th row from tid / kLanes, with (k, b) stepped, not
+// divided, per row.
+template <int kLanes, typename F>
+__device__ __forceinline__ void for_rows(int rows, int n, F&& body) {
+  const int per = blockDim.x / kLanes;
+  const int t = threadIdx.x % kLanes;
+  int r = threadIdx.x / kLanes;
+  int k = r / n, b = r - k * n;
+  const int dk = per / n, db = per - dk * n;
+  for (; r < rows; r += per) {
+    body(k, b, t);
+    k += dk;
+    b += db;
+    if (b >= n) {
+      b -= n;
+      ++k;
+    }
+  }
+}
+
+// Spatial motion cross product v x m and force cross product v x* f, on
+// [ang, lin] vectors.
+template <typename T>
+__device__ __forceinline__ void motion_cross(const T v[6], const T m[6],
+                                             T out[6]) {
+  const T ax = v[0], ay = v[1], az = v[2], cx = v[3], cy = v[4], cz = v[5];
+  const T bx = m[0], by = m[1], bz = m[2], dx = m[3], dy = m[4], dz = m[5];
+  out[0] = ay * bz - az * by;
+  out[1] = az * bx - ax * bz;
+  out[2] = ax * by - ay * bx;
+  out[3] = (ay * dz - az * dy) + (cy * bz - cz * by);
+  out[4] = (az * dx - ax * dz) + (cz * bx - cx * bz);
+  out[5] = (ax * dy - ay * dx) + (cx * by - cy * bx);
+}
+template <typename T>
+__device__ __forceinline__ void force_cross(const T v[6], const T f[6],
+                                            T out[6]) {
+  const T ax = v[0], ay = v[1], az = v[2], cx = v[3], cy = v[4], cz = v[5];
+  const T tx = f[0], ty = f[1], tz = f[2], fx = f[3], fy = f[4], fz = f[5];
+  out[0] = (ay * tz - az * ty) + (cy * fz - cz * fy);
+  out[1] = (az * tx - ax * tz) + (cz * fx - cx * fz);
+  out[2] = (ax * ty - ay * tx) + (cx * fy - cy * fx);
+  out[3] = ay * fz - az * fy;
+  out[4] = az * fx - ax * fz;
+  out[5] = ax * fy - ay * fx;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kDynMaxThreads)
+    tree_dyn_kernel(Tables<T> tab, Dims d, const T* __restrict__ cdof,
+                    const T* __restrict__ body10,
+                    const T* __restrict__ qvel, T* __restrict__ qm,
+                    T* __restrict__ qfrc_bias, int64_t B) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int TT = kDynTile;
+  using Row = TileRow<T>;
+  constexpr int kPer16 = Row::kPer16, kChunks = TT / kPer16;
+  const int nb = d.nbody, nv = d.nv;
+  T* s_cdof = reinterpret_cast<T*>(smem_raw);
+  T* s_b10 = s_cdof + 6 * nv * TT;
+  T* s_qvel = s_b10 + 10 * nb * TT;
+  T* s_comp = s_qvel + nv * TT;
+  T* s_cvel = s_comp + 10 * nb * TT;
+  T* s_f = s_cvel + 6 * nb * TT;
+  T* s_tau = s_f + 6 * nv * TT;
+  T* s_fb = s_tau + 6 * nv * TT;
+  T* armature = s_fb + 6 * nb * TT;
+  T* keep = armature + nv;
+  T* grav = keep + nv;
+  int* s_int = reinterpret_cast<int*>(grav + 3);
+  const int64_t r0 = (int64_t)blockIdx.x * TT;
+  const int live = B - r0 < TT ? (int)(B - r0) : TT;  // rollouts in the tile
+  // The int tables' place in shared memory: the block from I_DOF_BODY to
+  // the end of I_QM_KIND, copied whole.
+  const int i0 = tab.ti[I_DOF_BODY];
+  const int n_int = tab.ti[I_QM_KIND] + nv * nv - i0;
+  auto staged = [&](int seg) -> const int* {
+    return s_int + (tab.ti[seg] - i0);
+  };
+  const int* dof_body = staged(I_DOF_BODY);
+  const int* sub_ptr = staged(I_BODY_SUB_PTR);
+  const int* sub = staged(I_BODY_SUB);
+  const int* anc_ptr = staged(I_BODY_ANCDOF_PTR);
+  const int* anc = staged(I_BODY_ANCDOF);
+  const int* qm_kind = staged(I_QM_KIND);
+  auto at = [&](const T* base, int row, int t) -> T {
+    return base[row * TT + t];
+  };
+
+  // 1. Stage the tile's cdof, body10 and qvel rows, which lie one after
+  //    another in shared memory, a 16-byte chunk a copy where the chunk is
+  //    whole and aligned (a rollout past B reads zeros); then the tables,
+  //    whose addresses wait on the header's loads.
+  const int n6 = 6 * nv, n16 = 6 * nv + 10 * nb, n_in = n16 + nv;
+  for_rows<kChunks>(n_in, n_in, [&](int, int row, int part) {
+    const T* src = (row < n6    ? cdof + (int64_t)row * B
+                    : row < n16 ? body10 + (int64_t)(row - n6) * B
+                                : qvel + (int64_t)(row - n16) * B) +
+                   r0 + part * kPer16;
+    T* dst = s_cdof + row * TT + part * kPer16;
+    if (live == TT && aligned16(src)) {
+      cp_async<16>(dst, src);
+      return;
+    }
+    for (int e = 0; e < kPer16; ++e) {
+      if (part * kPer16 + e < live)
+        cp_async<sizeof(T)>(dst + e, src + e);
+      else
+        dst[e] = T(0);
+    }
+  });
+  for (int i = threadIdx.x; i < n_int; i += blockDim.x)
+    cp_async<4>(s_int + i, tab.ti + i0 + i);
+  for (int i = threadIdx.x; i < 2 * nv + 3; i += blockDim.x)
+    cp_async<sizeof(T)>(armature + i,
+                        i < 2 * nv ? tab.fseg(F_DOF_ARMATURE) + i
+                                   : tab.fseg(F_GRAVITY) + i - 2 * nv);
+  cp_async_wait();
+  __syncthreads();
+
+  auto row_of = [&](T* base, int row) { return base + row * TT; };
+  // Row k of `src` summed over the subtree of body b, into `dst`.
+  auto subtree_sum = [&](T* dst, T* src, int k, int b) {
+    Row acc, x;
+    acc.zero();
+#pragma unroll 2
+    for (int j = sub_ptr[b]; j < sub_ptr[b + 1]; ++j) {
+      x.load(row_of(src, k * nb + sub[j]));
+      acc.add(x);
+    }
+    acc.store(row_of(dst, k * nb + b));
+  };
+
+  // 2. Composite inertias (subtree sums of body10, rows k < 10) and body
+  //    velocities (cdof qvel over the ancestor-or-self dofs, rows 10 + c).
+  for_rows<1>(16 * nb, nb, [&](int k, int b, int) {
+    if (b == 0) return;
+    if (k < 10) {
+      subtree_sum(s_comp, s_b10, k, b);
+      return;
+    }
+    const int c = k - 10;
+    Row acc, x, q;
+    acc.zero();
+#pragma unroll 2
+    for (int j = anc_ptr[b]; j < anc_ptr[b + 1]; ++j) {
+      const int v = anc[j];
+      x.load(row_of(s_cdof, c * nv + v));
+      q.load(row_of(s_qvel, v));
+      acc.fma(x, q);
+    }
+    acc.store(row_of(s_cvel, c * nb + b));
+  });
+  __syncthreads();
+
+  // 3. Per dof: f_w = Ic_body(w) cdof_w, and the bias term tau_v (the
+  //    keep mask zeroes cvel for a free joint's translational dofs).
+  for_rows<TT>(nv, nv, [&](int, int v, int t) {
+    const int bv = dof_body[v];
+    T cd[6], p10[10], cv[6], f[6], tau[6];
+    for (int c = 0; c < 6; ++c) cd[c] = at(s_cdof, c * nv + v, t);
+    for (int k = 0; k < 10; ++k) p10[k] = at(s_comp, k * nb + bv, t);
+    inertia_apply(p10, cd, f);
+    const T kp = keep[v], qv = at(s_qvel, v, t);
+    for (int c = 0; c < 6; ++c) cv[c] = at(s_cvel, c * nb + bv, t) * kp;
+    motion_cross(cv, cd, tau);
+    for (int c = 0; c < 6; ++c) {
+      s_f[(c * nv + v) * TT + t] = f[c];
+      s_tau[(c * nv + v) * TT + t] = tau[c] * qv;
+    }
+  });
+  __syncthreads();
+
+  // 4. Body forces fb_b = I_b cacc_b + cvel_b x* (I_b cvel_b), with cacc_b
+  //    = -g on the linear rows plus tau over the ancestor-or-self dofs; and
+  //    every qm entry in one pass: cdof_i . f_j on the pattern with (i, j)
+  //    = (min, max) of its row and column, armature on the diagonal, zero
+  //    off the pattern.
+  for_rows<TT>(nb, nb, [&](int, int b, int t) {
+    if (b == 0) return;
+    T ca[6], p10[10], cv[6], iv[6], ia[6], fx[6];
+    for (int c = 0; c < 6; ++c) ca[c] = c >= 3 ? -grav[c - 3] : T(0);
+#pragma unroll 2
+    for (int j = anc_ptr[b]; j < anc_ptr[b + 1]; ++j)
+      for (int c = 0; c < 6; ++c) ca[c] += at(s_tau, c * nv + anc[j], t);
+    for (int k = 0; k < 10; ++k) p10[k] = at(s_b10, k * nb + b, t);
+    for (int c = 0; c < 6; ++c) cv[c] = at(s_cvel, c * nb + b, t);
     inertia_apply(p10, cv, iv);
     inertia_apply(p10, ca, ia);
-    const T ax = cv[0], ay = cv[1], az = cv[2];
-    const T lx = cv[3], ly = cv[4], lz = cv[5];
-    const T tx = iv[0], ty = iv[1], tz = iv[2];
-    const T fx = iv[3], fy = iv[4], fz = iv[5];
-    S(6, b) = ia[0] + ((ay * tz - az * ty) + (ly * fz - lz * fy));
-    S(7, b) = ia[1] + ((az * tx - ax * tz) + (lz * fx - lx * fz));
-    S(8, b) = ia[2] + ((ax * ty - ay * tx) + (lx * fy - ly * fx));
-    S(9, b) = ia[3] + (ay * fz - az * fy);
-    S(10, b) = ia[4] + (az * fx - ax * fz);
-    S(11, b) = ia[5] + (ax * fy - ay * fx);
-  }
-  // Backward sweep: subtree sums of the body forces.
-  for (int b = nb - 1; b > 0; --b) {
-    const int p = parent[b];
-    if (p == 0) continue;
-    for (int c = 0; c < 6; ++c) S(6 + c, p) += S(6 + c, b);
-  }
-  for (int v = 0; v < nv; ++v) {
-    T cd[6];
-    load6(cdof, nv, v, cd);
-    const int b = dof_body[v];
-    T acc = T(0);
-    for (int c = 0; c < 6; ++c) acc += cd[c] * S(6 + c, b);
-    qfrc_bias[(int64_t)v * B + r] = acc;
-  }
+    force_cross(cv, iv, fx);
+    for (int c = 0; c < 6; ++c) s_fb[(c * nb + b) * TT + t] = ia[c] + fx[c];
+  });
+  for_rows<TT>(nv * nv, nv, [&](int v, int w, int t) {
+    if (t >= live) return;
+    const int kind = qm_kind[v * nv + w];
+    T val = T(0);
+    if (kind != kQmZero) {
+      const int lo = v < w ? v : w, hi = v < w ? w : v;
+      for (int c = 0; c < 6; ++c)
+        val += at(s_cdof, c * nv + lo, t) * at(s_f, c * nv + hi, t);
+      if (kind == kQmDiag) val += armature[v];
+    }
+    qm[(int64_t)(v * nv + w) * B + r0 + t] = val;
+  });
+  __syncthreads();
+
+  // 5. The body forces summed over each subtree, into comp's rows.
+  T* s_btot = s_comp;
+  for_rows<1>(6 * nb, nb, [&](int c, int b, int) {
+    if (b > 0) subtree_sum(s_btot, s_fb, c, b);
+  });
+  __syncthreads();
+
+  // 6. qfrc_bias_v = cdof_v . btot_body(v).
+  for_rows<1>(nv, nv, [&](int, int v, int) {
+    const int bv = dof_body[v];
+    Row acc, x, y;
+    acc.zero();
+    for (int c = 0; c < 6; ++c) {
+      x.load(row_of(s_cdof, c * nv + v));
+      y.load(row_of(s_btot, c * nb + bv));
+      acc.fma(x, y);
+    }
+    acc.put(qfrc_bias + (int64_t)v * B + r0, live);
+  });
 }
 
 template <typename K>
@@ -534,14 +766,17 @@ int launch_fk(const void* ti, const void* tf, Dims d, const void* qpos,
 template <typename T>
 int launch_dyn(const void* ti, const void* tf, Dims d, const void* cdof,
                const void* body10, const void* qvel, void* qm,
-               void* qfrc_bias, int64_t B, int tile, void* stream) {
+               void* qfrc_bias, int64_t B, int threads, void* stream) {
+  if (threads < kDynTile || threads > kDynMaxThreads ||
+      threads % kDynTile != 0)
+    return (int)cudaErrorInvalidValue;
   if (B <= 0) return (int)cudaSuccess;
-  const size_t smem = (size_t)12 * d.nbody * tile * sizeof(T);
+  const size_t smem = dyn_smem_bytes(d.nbody, d.nv, sizeof(T));
   auto kernel = tree_dyn_kernel<T>;
   int err = set_smem(kernel, smem);
   if (err != (int)cudaSuccess) return err;
-  const int64_t blocks = (B + tile - 1) / tile;
-  kernel<<<(unsigned)blocks, tile, smem, (cudaStream_t)stream>>>(
+  const int64_t blocks = (B + kDynTile - 1) / kDynTile;
+  kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
       Tables<T>{(const int*)ti, (const T*)tf}, d, (const T*)cdof,
       (const T*)body10, (const T*)qvel, (T*)qm, (T*)qfrc_bias, B);
   return (int)cudaGetLastError();
@@ -551,9 +786,12 @@ int launch_dyn(const void* ti, const void* tf, Dims d, const void* cdof,
 
 extern "C" {
 
-// Number of int (which == 0) or float (which == 1) table segments.
+// Number of int (which == 0) or float (which == 1) table segments; K6's
+// rollouts per CTA (which == 2).
 int dex_tree_layout(int which) {
-  return which == 0 ? (int)N_INT_SEGS : (int)N_FLOAT_SEGS;
+  return which == 0 ? (int)N_INT_SEGS
+         : which == 1 ? (int)N_FLOAT_SEGS
+                      : kDynTile;
 }
 
 // K5.  elem_bytes: 4 or 8.  ti/tf: the packed tables.  Inputs qpos (nq, B),
@@ -583,19 +821,21 @@ int dex_tree_fk(int elem_bytes, const void* ti, const void* tf, int nbody,
 }
 
 // K6.  Inputs cdof (6 nv, B), body10 (10 nbody, B), qvel (nv, B); outputs
-// qm (nv * nv, B) and qfrc_bias (nv, B).  tile rollouts (= threads) per CTA.
+// qm (nv * nv, B) and qfrc_bias (nv, B).  kDynTile rollouts per CTA of
+// `threads` threads (a multiple of kDynTile, at most kDynMaxThreads); shared
+// memory dyn_smem_bytes(nbody, nv, elem_bytes).
 int dex_tree_dyn(int elem_bytes, const void* ti, const void* tf, int nbody,
                  int nv, int nq, int ngeom, int ntendon, int nmocap,
                  const void* cdof, const void* body10, const void* qvel,
-                 void* qm, void* qfrc_bias, int64_t B, int tile,
+                 void* qm, void* qfrc_bias, int64_t B, int threads,
                  void* stream) {
   const Dims d{nbody, nv, nq, ngeom, ntendon, nmocap};
   if (elem_bytes == 4)
     return launch_dyn<float>(ti, tf, d, cdof, body10, qvel, qm, qfrc_bias, B,
-                             tile, stream);
+                             threads, stream);
   if (elem_bytes == 8)
     return launch_dyn<double>(ti, tf, d, cdof, body10, qvel, qm, qfrc_bias,
-                              B, tile, stream);
+                              B, threads, stream);
   return (int)cudaErrorInvalidValue;
 }
 

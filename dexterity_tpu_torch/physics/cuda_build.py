@@ -5,7 +5,8 @@ with nvcc for sm_90a and loaded with ctypes.  The first call builds all of
 them at once, one nvcc process per source, all started together, into
 `build/dexterity_tpu_torch/<hash>/` at the repository root; the hash
 covers every `.cu` file, so an edit to any source rebuilds the set.  Later
-calls return the loaded libraries.
+calls return the loaded libraries.  `launch` calls a library's entry on
+a device's current stream.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict
+
+import torch
 
 _CSRC = Path(__file__).resolve().parents[1] / 'csrc'
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / 'build' / \
@@ -100,3 +103,16 @@ def build_all() -> Dict[str, ctypes.CDLL]:
 def library(name: str) -> ctypes.CDLL:
   """The loaded library built from `csrc/<name>.cu`."""
   return build_all()[name]
+
+
+def launch(fn, device: torch.device, *args) -> int:
+  """Calls the C entry fn(*args, stream) with `device`'s current stream and
+  returns its cudaError_t.  The stream is passed as its raw handle, without
+  the Stream object torch.cuda.current_stream() builds around it (most of a
+  wrapper's host time after the launch itself), and the device context is
+  entered only when `device` is not the current device."""
+  stream = torch._C._cuda_getCurrentRawStream(device.index)
+  if device.index == torch.cuda.current_device():
+    return fn(*args, stream)
+  with torch.cuda.device(device):
+    return fn(*args, stream)

@@ -31,16 +31,17 @@ FP32 rate, so the bound is memory, but the kernels are latency-bound along
 the n-step serial pivot chain.  Two designs, one warp per matrix in both
 (see the sources' headers):
 
-  'registers'  `csrc/cholesky_regs.cu`: K1 and K2 at n <= 32, a row per
-               lane in registers, the pivot loop unrolled with no branch;
-               the main path (n = 30, float32) runs it.
+  'registers'  `csrc/cholesky_regs.cu`: K1, K2 and K3 at n <= 32, a row
+               per lane in registers, the pivot loop unrolled with no
+               branch; the main path (n = 30, float32) and the environment
+               step (n = 30) run it.
   'shared'     `csrc/cholesky.cu`: the matrix in shared memory, one
-               __syncwarp() per pivot: K3, K4, and K1/K2 beyond n = 32.
+               __syncwarp() per pivot: K4, and K1-K3 beyond n = 32.
 
-`_design(n, dtype)` picks K1's and K2's from the shape and type alone; no
-switch overrides it on the public wrappers.  `_launch(..., design=...)`
-runs either design at the same inputs, so a card run can time the shared
-design beside the register one.
+`_design(n, dtype)` picks K1's, K2's and K3's from the shape and type
+alone; no switch overrides it on the public wrappers.
+`_launch(..., design=...)` runs either design at the same inputs, so a card
+run can time the shared design beside the register one.
 
 The kernels are built at first use by `cuda_build` (nvcc, sm_90a, ctypes).
 No gradients are defined here.
@@ -62,6 +63,8 @@ _MODE_FACTOR = 3
 # Largest n of the register design: one row per lane.  (Its code with two
 # rows per lane, n <= 64, spills K1 in both types; see cholesky_regs.cu.)
 _REG_MAX_N = 32
+# The modes the register design has: K3, K1, K2.
+_REG_MODES = (_MODE_SOLVE, _MODE_SOLVE_FACTOR, _MODE_RESOLVE)
 
 # Shared memory one block may use on Hopper (227 KB).
 _MAX_SMEM = 232448
@@ -101,7 +104,8 @@ def build() -> dict:
 
 
 def _design(n: int, dtype: torch.dtype) -> str:
-  """The design K1 and K2 run at (n, dtype): 'registers' or 'shared'."""
+  """The design K1, K2 and K3 run at (n, dtype): 'registers' or
+  'shared'."""
   real = dtype in (torch.float32, torch.float64)
   return 'registers' if real and 1 <= n <= _REG_MAX_N else 'shared'
 
@@ -120,8 +124,8 @@ def _launch(mode: int, name: str, a: torch.Tensor, g=None,
             want_factor: bool = False, design: str | None = None):
   """Checks the operands and launches one kernel on the current stream.
   Returns x, (x, factor) or, with no rhs, the factor alone.  `design`
-  None takes `_design` for K1/K2 and 'shared' for K3/K4; the public
-  wrappers never pass it."""
+  None takes `_design` for K1-K3 and 'shared' for K4; the public wrappers
+  never pass it."""
   if a.dtype not in (torch.float32, torch.float64):
     raise TypeError(f'{name}: dtype {a.dtype} is not float32/float64')
   if a.dim() < 2 or a.shape[-2] != a.shape[-1]:
@@ -133,10 +137,9 @@ def _launch(mode: int, name: str, a: torch.Tensor, g=None,
     if g.shape[-1:] != (n,) or a.shape[:-2] != g.shape[:-1]:
       raise ValueError(f'{name}: shapes {tuple(a.shape)} / '
                        f'{tuple(g.shape)}')
-  regs_modes = (_MODE_SOLVE_FACTOR, _MODE_RESOLVE)
   if design is None:
-    design = _design(n, a.dtype) if mode in regs_modes else 'shared'
-  elif design == 'registers' and (mode not in regs_modes or
+    design = _design(n, a.dtype) if mode in _REG_MODES else 'shared'
+  elif design == 'registers' and (mode not in _REG_MODES or
                                   not 1 <= n <= _REG_MAX_N):
     raise ValueError(f'{name}: no register design at n={n}, {a.dtype}')
   elem = a.element_size()
@@ -154,21 +157,11 @@ def _launch(mode: int, name: str, a: torch.Tensor, g=None,
   g2 = None if g is None else (g if flat else g.reshape(-1, n)).contiguous()
   x = torch.empty_like(g2) if g is not None else None
   fac = torch.empty_like(a2) if want_factor else None
-  dev = a.device
-  # The current stream's handle as an int, without the Stream object that
-  # torch.cuda.current_stream() builds around it (most of the wrapper's
-  # host time after the launch itself).
-  stream = torch._C._cuda_getCurrentRawStream(dev.index)
-  args = (mode, elem, a2.data_ptr(),
-          None if g2 is None else g2.data_ptr(),
-          None if x is None else x.data_ptr(),
-          None if fac is None else fac.data_ptr(), a2.shape[0], n, wpb,
-          stream)
-  if dev.index == torch.cuda.current_device():
-    err = fn(*args)
-  else:
-    with torch.cuda.device(dev):
-      err = fn(*args)
+  err = cuda_build.launch(
+      fn, a.device, mode, elem, a2.data_ptr(),
+      None if g2 is None else g2.data_ptr(),
+      None if x is None else x.data_ptr(),
+      None if fac is None else fac.data_ptr(), a2.shape[0], n, wpb)
   if err != 0:
     raise RuntimeError(f'{name}: kernel launch failed (cudaError {err})')
   launches[name] += 1

@@ -35,14 +35,15 @@ Bound on the card at the reorient planning model (nbody 33, nv 30, nq 31,
 ngeom 236, ntendon 4, nmocap 1), B = 1024, float32: K5 moves 68 input and
 3,680 output rows (15.35 MB, 4.6 us at 3.35 TB/s), K6 540 input and 930
 output rows (6.02 MB, 1.8 us).  Both do far less arithmetic than the FP32
-rate allows; both are latency-bound along serial per-rollout chains (see
-the source's header).
+rate allows.  K5 is latency-bound along its serial per-rollout body walk;
+K6 computes what `_kernel_dyn` computes, every tree recursion a gather over
+the static tables below (subtrees, ancestor dofs, qm entry kinds), in six
+phases shared by a CTA's threads (see the source's header).
 """
 
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import Optional
 
 import numpy as np
@@ -55,25 +56,36 @@ from dexterity_tpu_torch.physics import cuda_build, kinematics, smooth
 launches = {'tree_sweep_fk': 0, 'tree_sweep_dyn': 0}
 
 # Segment order of the packed tables; csrc/tree_sweep.cu's IntSeg and
-# FloatSeg enums list the same names in the same order.
-_INT_SEGS = ('body_parent', 'body_jtype', 'body_qadr', 'body_dadr',
-             'body_dofnum', 'body_mocap', 'dof_body', 'dof_jtype',
-             'dof_jofs', 'dof_parent', 'geom_body')
+# FloatSeg enums list the same names in the same order.  K6's gathers read
+# two CSR lists (`*_ptr` then the entries), each body's subtree and each
+# body's ancestor-or-self dofs, and each qm entry's kind (_QM_KINDS).  K6
+# copies its int segments, the last five and dof_body, as one block, and
+# dof_armature with dof_keep, into shared memory.
+_INT_SEGS = ('body_parent', 'body_jtype', 'body_qadr', 'body_mocap',
+             'dof_jtype', 'dof_jofs', 'geom_body', 'dof_body',
+             'body_sub_ptr', 'body_sub', 'body_ancdof_ptr', 'body_ancdof',
+             'qm_kind')
 _FLOAT_SEGS = ('body_pos', 'body_quat', 'body_jaxis', 'body_jpos',
                'body_ipos', 'body_iquat', 'body_mass', 'body_inertia',
                'dof_jaxis', 'dof_jpos', 'dof_armature', 'dof_keep',
                'geom_pos', 'geom_quat', 'gravity', 'ten_qsel',
                'ten_moment')
 
-# K5: rollouts per CTA and threads per CTA; K6: rollouts (= threads) per
-# CTA at most.  Shared memory one block may use on Hopper: 227 KB.
+# Kind of qm entry (v, w) in `qm_kind`: off the CRB pattern, on its strict
+# upper triangle (v < w), on the mirror of that below the diagonal, or on
+# the diagonal (the kernel's kQmZero .. kQmDiag).
+_QM_KINDS = ('zero', 'upper', 'mirrored', 'diagonal')
+
+# Rollouts and threads per CTA: K5's, and K6's (its tile is the kernel's
+# kDynTile, checked at binding).  Shared memory one block may use on
+# Hopper: 227 KB.
 _FK_TILE = 8
 _FK_THREADS = 128
-_DYN_TILE = 32
+_DYN_TILE = 8
+_DYN_THREADS = 512
 _MAX_SMEM = 232448
 
 _lib = None
-_lock = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -91,30 +103,30 @@ def supports(model: Model) -> bool:
 
 
 def build() -> ctypes.CDLL:
-  """Builds (if a source changed) and loads the kernel library."""
+  """Builds (if a source changed) and loads the kernel library; later
+  calls return it without a lock (cuda_build holds one over the build)."""
   global _lib
-  with _lock:
-    if _lib is None:
-      lib = cuda_build.library('tree_sweep')
-      lib.dex_tree_layout.restype = ctypes.c_int
-      lib.dex_tree_layout.argtypes = [ctypes.c_int]
-      if (lib.dex_tree_layout(0), lib.dex_tree_layout(1)) != (
-          len(_INT_SEGS), len(_FLOAT_SEGS)):
-        raise RuntimeError('tree_sweep.cu and tree_cuda.py disagree on the '
-                           'table layout')
-      dims = [ctypes.c_int] * 6
-      lib.dex_tree_fk.restype = ctypes.c_int
-      lib.dex_tree_fk.argtypes = (
-          [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p] + dims
-          + [ctypes.c_void_p] * 13
-          + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-      lib.dex_tree_dyn.restype = ctypes.c_int
-      lib.dex_tree_dyn.argtypes = (
-          [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p] + dims
-          + [ctypes.c_void_p] * 5
-          + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p])
-      _lib = lib
-    return _lib
+  if _lib is None:
+    lib = cuda_build.library('tree_sweep')
+    lib.dex_tree_layout.restype = ctypes.c_int
+    lib.dex_tree_layout.argtypes = [ctypes.c_int]
+    if tuple(lib.dex_tree_layout(k) for k in range(3)) != (
+        len(_INT_SEGS), len(_FLOAT_SEGS), _DYN_TILE):
+      raise RuntimeError('tree_sweep.cu and tree_cuda.py disagree on the '
+                         'table layout or K6\'s tile')
+    dims = [ctypes.c_int] * 6
+    lib.dex_tree_fk.restype = ctypes.c_int
+    lib.dex_tree_fk.argtypes = (
+        [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p] + dims
+        + [ctypes.c_void_p] * 13
+        + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    lib.dex_tree_dyn.restype = ctypes.c_int
+    lib.dex_tree_dyn.argtypes = (
+        [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p] + dims
+        + [ctypes.c_void_p] * 5
+        + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p])
+    _lib = lib
+  return _lib
 
 
 # ---------------------------------------------------------------------------
@@ -122,23 +134,18 @@ def build() -> ctypes.CDLL:
 # ---------------------------------------------------------------------------
 
 
-def _dof_parent(model: Model) -> np.ndarray:
-  """The next ancestor dof of each dof (-1 at the root): the previous dof
-  of the same body, else the last dof of the nearest ancestor body with
-  dofs.  Walking it from w visits exactly the dofs v <= w that are
-  ancestor dofs of body(w), the CRB pattern (smooth._dof_upper_mask_np)."""
-  out = np.full(model.nv, -1, np.int32)
-  for v in range(model.nv):
-    b = model.dof_bodyid[v]
-    if v > model.body_dofadr[b]:
-      out[v] = v - 1
-      continue
-    p = model.body_parentid[b]
-    while p != 0 and model.body_dofnum[p] == 0:
-      p = model.body_parentid[p]
-    if p != 0:
-      out[v] = model.body_dofadr[p] + model.body_dofnum[p] - 1
-  return out
+def _csr(mask: np.ndarray):
+  """(row pointers, column indices) of the nonzeros of a 0/1 mask."""
+  rows, cols = np.nonzero(mask)
+  return np.searchsorted(rows, np.arange(mask.shape[0] + 1)), cols
+
+
+def _qm_kind(model: Model) -> np.ndarray:
+  """(nv, nv) index into _QM_KINDS of each qm entry, from the CRB pattern
+  smooth._dof_upper_mask_np."""
+  up = smooth._dof_upper_mask_np(model).astype(bool)
+  eye = np.eye(model.nv, dtype=bool)
+  return (1 * (up & ~eye) + 2 * (up.T & ~eye) + 3 * eye).astype(np.int64)
 
 
 def tables_np(model: Model):
@@ -162,6 +169,8 @@ def tables_np(model: Model):
   for j in range(model.njnt):
     if model.jnt_type[j] == int(JointType.FREE):
       trans_free[model.jnt_dofadr[j]:model.jnt_dofadr[j] + 3] = True
+  sub_ptr, sub = _csr(smooth._subtree_mask_np(model))
+  anc_ptr, anc = _csr(kinematics.ancestor_mask(model))
   tm = host(model.tendon_moment).reshape(model.ntendon, nv)
   qsel = np.zeros((model.ntendon, nq))
   dq_adr = kinematics._dof_qposadr(model)
@@ -172,11 +181,11 @@ def tables_np(model: Model):
       body_parent=model.body_parentid,
       body_jtype=[model.jnt_type[j] if j >= 0 else -1 for j in jnt_of],
       body_qadr=[model.jnt_qposadr[j] if j >= 0 else 0 for j in jnt_of],
-      body_dadr=model.body_dofadr, body_dofnum=model.body_dofnum,
       body_mocap=model.body_mocapid, dof_body=model.dof_bodyid,
       dof_jtype=[model.jnt_type[j] for j in dof_jnt],
       dof_jofs=[v - model.jnt_dofadr[dof_jnt[v]] for v in range(nv)],
-      dof_parent=_dof_parent(model), geom_body=model.geom_bodyid)
+      geom_body=model.geom_bodyid, body_sub_ptr=sub_ptr, body_sub=sub,
+      body_ancdof_ptr=anc_ptr, body_ancdof=anc, qm_kind=_qm_kind(model))
   floats = dict(
       body_pos=host(model.body_pos), body_quat=host(model.body_quat),
       body_jaxis=[jnt_axis[j] if j >= 0 else zeros3 for j in jnt_of],
@@ -284,17 +293,20 @@ def tree_sweep_plain(model: Model, qpos, qvel, mocap_pos, mocap_quat):
 # ---------------------------------------------------------------------------
 
 
-def _dyn_tile(model: Model, x: torch.Tensor) -> int:
-  """K6's rollouts per CTA for x's dtype; raises where the kernels do not
-  take the dtype or the model's bodies do not fit in shared memory."""
+def _check_fits(model: Model, x: torch.Tensor) -> None:
+  """Raises where the kernels do not take x's dtype or the model does not
+  fit in their shared memory (K5: 7 rows per body per rollout of a tile,
+  K6: csrc/tree_sweep.cu's dyn_smem_bytes, mirrored here)."""
   if x.dtype not in (torch.float32, torch.float64):
     raise TypeError(f'tree sweep: dtype {x.dtype} is not float32/float64')
   elem = x.element_size()
-  tile = min(_DYN_TILE, _MAX_SMEM // (12 * model.nbody * elem))
-  if 7 * model.nbody * _FK_TILE * elem > _MAX_SMEM or tile < 1:
-    raise ValueError(f'tree sweep: nbody={model.nbody} exceeds the shared '
-                     'memory')
-  return tile
+  nb, nv = model.nbody, model.nv
+  fk = 7 * nb * _FK_TILE * elem
+  ints = nv + 2 * (nb + 1) + nb * nb + nb * nv + nv * nv
+  dyn = ((19 * nv + 32 * nb) * _DYN_TILE + 2 * nv + 3) * elem + 4 * ints
+  if max(fk, dyn) > _MAX_SMEM:
+    raise ValueError(f'tree sweep: nbody={model.nbody}, nv={model.nv} '
+                     'exceed the shared memory')
 
 
 def _route(model: Model, x: torch.Tensor) -> bool:
@@ -314,7 +326,7 @@ def tree_fk(model: Model, qpos, qvel, mocap_pos, mocap_quat):
   _check_inputs(model, qpos, qvel, mocap_pos, mocap_quat)
   if not _route(model, qpos):
     return fk_plain(model, qpos, qvel, mocap_pos, mocap_quat)
-  _dyn_tile(model, qpos)
+  _check_fits(model, qpos)
   nb, nv, nq, ng = model.nbody, model.nv, model.nq, model.ngeom
   nt, nm = model.ntendon, model.nmocap
   lib = build()
@@ -328,12 +340,11 @@ def tree_fk(model: Model, qpos, qvel, mocap_pos, mocap_quat):
   rows = (3 * nb, 4 * nb, 6 * nv, 3 * ng, 9 * ng, 3 * nb, 10 * nb, nt, nt)
   out = {k: torch.empty((r, b), dtype=dtype, device=dev)
          for k, r in zip(names, rows)}
-  with torch.cuda.device(dev):
-    err = lib.dex_tree_fk(
-        qpos.element_size(), ti.data_ptr(), tf.data_ptr(), nb, nv, nq, ng,
-        nt, nm, qpos.data_ptr(), qvel.data_ptr(), mocap_pos.data_ptr(),
-        mocap_quat.data_ptr(), *(out[k].data_ptr() for k in names), b,
-        _FK_TILE, _FK_THREADS, torch.cuda.current_stream(dev).cuda_stream)
+  err = cuda_build.launch(
+      lib.dex_tree_fk, dev, qpos.element_size(), ti.data_ptr(),
+      tf.data_ptr(), nb, nv, nq, ng, nt, nm, qpos.data_ptr(),
+      qvel.data_ptr(), mocap_pos.data_ptr(), mocap_quat.data_ptr(),
+      *(out[k].data_ptr() for k in names), b, _FK_TILE, _FK_THREADS)
   if err != 0:
     raise RuntimeError(f'tree_sweep_fk: kernel launch failed (cudaError '
                        f'{err})')
@@ -349,20 +360,18 @@ def tree_dyn(model: Model, cdof, body10, qvel):
   _check((6 * nv, 10 * nb, nv), cdof, body10, qvel)
   if not _route(model, qvel):
     return dyn_plain(model, cdof, body10, qvel)
-  tile = _dyn_tile(model, qvel)
+  _check_fits(model, qvel)
   lib = build()
   dev, dtype = qvel.device, qvel.dtype
   ti, tf = _device_tables(model, dtype, dev)
   cdof, body10, qvel = (x.contiguous() for x in (cdof, body10, qvel))
   qm = torch.empty((nv * nv, b), dtype=dtype, device=dev)
   qfrc_bias = torch.empty((nv, b), dtype=dtype, device=dev)
-  with torch.cuda.device(dev):
-    err = lib.dex_tree_dyn(
-        qvel.element_size(), ti.data_ptr(), tf.data_ptr(), nb, nv,
-        model.nq, model.ngeom, model.ntendon, model.nmocap,
-        cdof.data_ptr(), body10.data_ptr(), qvel.data_ptr(), qm.data_ptr(),
-        qfrc_bias.data_ptr(), b, tile,
-        torch.cuda.current_stream(dev).cuda_stream)
+  err = cuda_build.launch(
+      lib.dex_tree_dyn, dev, qvel.element_size(), ti.data_ptr(),
+      tf.data_ptr(), nb, nv, model.nq, model.ngeom, model.ntendon,
+      model.nmocap, cdof.data_ptr(), body10.data_ptr(), qvel.data_ptr(),
+      qm.data_ptr(), qfrc_bias.data_ptr(), b, _DYN_THREADS)
   if err != 0:
     raise RuntimeError(f'tree_sweep_dyn: kernel launch failed (cudaError '
                        f'{err})')

@@ -208,3 +208,26 @@ def test_launch_checks_come_before_the_card(monkeypatch, mode, name):
     LC._launch(mode, name, meta(1, 80, 80), meta(1, 80), design='registers')
   with pytest.raises(ValueError):
     LC._launch(mode, name, meta(2, 4, 5), meta(2, 4))
+
+
+@pytest.mark.parametrize('n,dtype,want', [
+    (1, torch.float32, 'registers'), (30, torch.float32, 'registers'),
+    (32, torch.float64, 'registers'), (33, torch.float32, 'shared'),
+    (62, torch.float64, 'shared')])
+def test_launch_picks_k3_design(monkeypatch, n, dtype, want):
+  """`_launch` sends K3 (cholesky_solve) to the register design at n <= 32
+  and to the shared-memory one above, as `_design` says (meta tensors, a
+  stub C entry per design, no card)."""
+  called = []
+  fns = {d: (lambda *args, d=d: called.append((d, args[0])) or 0)
+         for d in ('registers', 'shared')}
+  monkeypatch.setattr(LC, '_fns', fns)
+  monkeypatch.setattr(LC.cuda_build, 'launch',
+                      lambda fn, dev, *args: fn(*args))
+  monkeypatch.setitem(LC.launches, 'cholesky_solve', 0)
+  h = torch.empty(4, n, n, dtype=dtype, device='meta')
+  g = torch.empty(4, n, dtype=dtype, device='meta')
+  x = LC._launch(LC._MODE_SOLVE, 'cholesky_solve', h, g)
+  assert LC._design(n, dtype) == want
+  assert called == [(want, LC._MODE_SOLVE)]
+  assert x.shape == (4, n) and LC.launches['cholesky_solve'] == 1

@@ -143,36 +143,132 @@ def test_plain_matches_jax_precompute_planes(models, which):
                                err_msg=key)
 
 
-def test_tables_match_the_plane_masks(models):
-  """The kernels' dof walk gives the CRB pattern and the ancestor mask;
-  the table header points at segments of the stated sizes."""
-  _, pm = models['plan']
-  par = tree_cuda._dof_parent(pm)
-  up = np.zeros((pm.nv, pm.nv))
-  for w in range(pm.nv):
-    v = w
-    while v >= 0:
-      up[v, w] = 1.0
-      v = par[v]
-  np.testing.assert_array_equal(up, psmooth._dof_upper_mask_np(pm))
-  anc = pkin.ancestor_mask(pm)
-  for v in range(pm.nv):
-    # Subtree of body(v) = the bodies whose ancestor dofs include v.
-    sub = psmooth._subtree_mask_np(pm)[pm.dof_bodyid[v]]
-    np.testing.assert_array_equal(sub[1:], anc[1:, v])
-  ti, tf = tree_cuda.tables_np(pm)
+def _segments(ti, tf):
+  """The packed tables split at the header's offsets: name -> array."""
   ni, nf = len(tree_cuda._INT_SEGS), len(tree_cuda._FLOAT_SEGS)
-  sizes = dict(body_pos=3 * pm.nbody, body_quat=4 * pm.nbody,
-               gravity=3, ten_qsel=pm.ntendon * pm.nq,
-               ten_moment=pm.ntendon * pm.nv, geom_quat=4 * pm.ngeom)
-  ends = list(ti[ni:ni + nf][1:]) + [len(tf)]
-  for name, size in sizes.items():
-    k = tree_cuda._FLOAT_SEGS.index(name)
-    assert ends[k] - ti[ni + k] == size, name
   iends = list(ti[1:ni]) + [len(ti)]
-  k = tree_cuda._INT_SEGS.index('geom_body')
-  assert iends[k] - ti[k] == pm.ngeom
-  np.testing.assert_array_equal(ti[ti[k]:iends[k]], pm.geom_bodyid)
+  fends = list(ti[ni + 1:ni + nf]) + [len(tf)]
+  out = {k: ti[ti[i]:iends[i]] for i, k in enumerate(tree_cuda._INT_SEGS)}
+  out.update({k: tf[ti[ni + i]:fends[i]]
+              for i, k in enumerate(tree_cuda._FLOAT_SEGS)})
+  return out
+
+
+def _csr_rows(ptr, idx, n):
+  """A CSR list as a dense 0/1 mask of n columns."""
+  out = np.zeros((len(ptr) - 1, n))
+  for r in range(len(ptr) - 1):
+    out[r, idx[ptr[r]:ptr[r + 1]]] = 1.0
+  return out
+
+
+def test_tables_match_the_plane_masks(models):
+  """K6's gather tables are the plane functions' masks: the subtree CSR is
+  the subtree mask, the ancestor-dof CSR the ancestor mask, the qm kinds
+  the CRB pattern, its strict transpose and the diagonal; the table header
+  points at segments of the stated sizes."""
+  _, pm = models['plan']
+  ti, tf = tree_cuda.tables_np(pm)
+  seg = _segments(ti, tf)
+  nb, nv = pm.nbody, pm.nv
+  np.testing.assert_array_equal(
+      _csr_rows(seg['body_sub_ptr'], seg['body_sub'], nb),
+      psmooth._subtree_mask_np(pm))
+  np.testing.assert_array_equal(
+      _csr_rows(seg['body_ancdof_ptr'], seg['body_ancdof'], nv),
+      pkin.ancestor_mask(pm))
+  up = psmooth._dof_upper_mask_np(pm)
+  eye = np.eye(nv)
+  kind = seg['qm_kind'].reshape(nv, nv)
+  names = tree_cuda._QM_KINDS
+  np.testing.assert_array_equal(kind == names.index('upper'),
+                                up * (1 - eye))
+  np.testing.assert_array_equal(kind == names.index('mirrored'),
+                                up.T * (1 - eye))
+  np.testing.assert_array_equal(kind == names.index('diagonal'), eye)
+  np.testing.assert_array_equal(kind == names.index('zero'),
+                                (up + up.T) == 0)
+  sizes = dict(body_pos=3 * nb, body_quat=4 * nb, gravity=3,
+               ten_qsel=pm.ntendon * pm.nq, ten_moment=pm.ntendon * nv,
+               geom_quat=4 * pm.ngeom, dof_armature=nv, dof_keep=nv,
+               geom_body=pm.ngeom, dof_body=nv, body_parent=nb,
+               body_sub_ptr=nb + 1, body_ancdof_ptr=nb + 1,
+               body_sub=int(psmooth._subtree_mask_np(pm).sum()),
+               body_ancdof=int(pkin.ancestor_mask(pm).sum()),
+               qm_kind=nv * nv)
+  for name, size in sizes.items():
+    assert len(seg[name]) == size, name
+  np.testing.assert_array_equal(seg['geom_body'], pm.geom_bodyid)
+  np.testing.assert_array_equal(seg['dof_body'], pm.dof_bodyid)
+
+
+def _gather_dyn(pm, ti, tf, cdof, body10, qvel):
+  """K6's phases in numpy, reading only the packed tables as the
+  kernel does (rows batch-minor, every sum a gather over a CSR list)."""
+  seg = _segments(ti, tf)
+  nb, nv = pm.nbody, pm.nv
+  cd = cdof.reshape(6, nv, -1)
+  b10 = body10.reshape(10, nb, -1)
+  sp, si = seg['body_sub_ptr'], seg['body_sub']
+  ap, ai = seg['body_ancdof_ptr'], seg['body_ancdof']
+  db = seg['dof_body']
+  sub = lambda b: si[sp[b]:sp[b + 1]]
+  anc = lambda b: ai[ap[b]:ap[b + 1]]
+  t = lambda x: torch.as_tensor(np.ascontiguousarray(x))
+  comp = np.stack([b10[:, sub(b)].sum(1) for b in range(nb)], 1)
+  cvel = np.stack([(cd[:, anc(b)] * qvel[anc(b)]).sum(1)
+                   for b in range(nb)], 1)
+  f = psmooth._spatial_inertia_apply(t(comp[:, db]), t(cd)).numpy()
+  ref = cvel[:, db] * seg['dof_keep'][:, None]
+  tau = psmooth._motion_cross_planes(t(ref), t(cd)).numpy() * qvel
+  grav = np.concatenate([np.zeros(3), -seg['gravity']])[:, None]
+  cacc = np.stack([grav + tau[:, anc(b)].sum(1) for b in range(nb)], 1)
+  iv = psmooth._spatial_inertia_apply(t(b10), t(cvel))
+  fb = (psmooth._spatial_inertia_apply(t(b10), t(cacc))
+        + psmooth._force_cross_planes(t(cvel), iv)).numpy()
+  kind = seg['qm_kind'].reshape(nv, nv)
+  qm = np.zeros((nv, nv, cd.shape[-1]))
+  for v in range(nv):
+    for w in range(nv):
+      if kind[v, w]:
+        lo, hi = min(v, w), max(v, w)
+        qm[v, w] = (cd[:, lo] * f[:, hi]).sum(0)
+        if kind[v, w] == tree_cuda._QM_KINDS.index('diagonal'):
+          qm[v, w] += seg['dof_armature'][v]
+  qfrc = np.stack([(cd[:, v] * fb[:, sub(db[v])].sum(1)).sum(0)
+                   for v in range(nv)])
+  return dict(qm=qm.reshape(nv * nv, -1), qfrc_bias=qfrc)
+
+
+@pytest.mark.parametrize('which', ['env', 'plan'])
+def test_gather_tables_give_dyn_plain(models, which):
+  """The packed tables, read as K6 reads them, give dyn_plain's qm and
+  qfrc_bias in float64 (only the order of the sums differs)."""
+  _, pm = models[which]
+  ins = [torch.as_tensor(x) for x in _inputs(pm, 4)]
+  fk = tree_cuda.fk_plain(pm, *ins)
+  want = tree_cuda.dyn_plain(pm, fk['cdof'], fk['body10'], ins[1])
+  got = _gather_dyn(pm, *tree_cuda.tables_np(pm), fk['cdof'].numpy(),
+                    fk['body10'].numpy(), ins[1].numpy())
+  for key in ('qm', 'qfrc_bias'):
+    scale = max(want[key].abs().max().item(), 1.0)
+    np.testing.assert_allclose(got[key], want[key].numpy(), rtol=0,
+                               atol=1e-12 * scale, err_msg=key)
+
+
+def test_kernel_size_checks_come_before_the_card(models):
+  """The wrappers raise on a dtype the kernels do not take and on a model
+  whose shared memory does not fit, before any build (meta tensors)."""
+  _, pm = models['plan']
+  with pytest.raises(TypeError):
+    tree_cuda._check_fits(pm, torch.empty(1, device='meta',
+                                          dtype=torch.float16))
+  big = pm.replace(nv=4000)
+  with pytest.raises(ValueError, match='shared memory'):
+    tree_cuda._check_fits(big, torch.empty(1, device='meta',
+                                           dtype=torch.float64))
+  tree_cuda._check_fits(pm, torch.empty(1, device='meta',
+                                        dtype=torch.float64))
 
 
 def test_cpu_inputs_use_the_plain_version(models):
