@@ -8,8 +8,8 @@ non-zero otherwise, and on any failed check.  Phases, one JSON line each:
 
   0. probe: torch/CUDA versions, the card, the kernel build (one nvcc per
      csrc/*.cu source, all started together, sm_90a), and the registers
-     and spills of the register-design kernels, K1-K3 in both types (none
-     may spill).
+     and spills of the register-design kernels, K1-K4 in both types (none
+     may spill), and of the tree-sweep kernels.
   1. rollouts: the ShadowHand reorient planning model (4 Newton iterations,
      6 line-search steps, refactor every 2, 3 substeps, contact budget
      16/16, implicit damping, no self-collision) steps B = 1024 rollouts
@@ -27,13 +27,16 @@ non-zero otherwise, and on any failed check.  Phases, one JSON line each:
      CPU in float64.
   4. tree sweep: build_tree_sweep (K5 + K6) on the rollouts' states after
      their first control step, against its plain version in float32 and
-     float64, qm factorable; timed beside step._precompute_planes.
+     float64 (also at B = 37), qm factorable; timed beside
+     step._precompute_planes; K5's launch shape (grid and block, from the
+     profiler's trace) and its wrapper's host time by operation (the
+     profiler's CPU activity).
   5. cholesky_factor: the K4 + K2 entry points on the path's Hessians.
   6. kernels: each Cholesky kernel against its plain version and a
      float64 reference, on seeded SPD matrices and on the Hessians the
      rollouts built, and K1/K2 on a rank-deficient batch; timed (device
      time, torch.profiler) beside its plain version, a library call and
-     its bound.  K1-K3 also name the design that ran (`design`, from the
+     its bound.  K1-K4 also name the design that ran (`design`, from the
      profiled kernel names) and time the shared-memory design at the same
      inputs, in turns with it (`previous_design_ms`); K3 also at the
      environment step's shape (`env_shape`).
@@ -91,7 +94,7 @@ KERNELS = [
     ('cholesky_solve_factor', f'{_LP}:135', _REGS, 'main_path'),
     ('cholesky_resolve_const', f'{_LP}:291', _REGS, 'main_path'),
     ('cholesky_solve', f'{_LP}:74', _REGS, 'environment_model'),
-    ('cholesky_factor', f'{_LP}:262', _CHOL, 'entry:cholesky_factor'),
+    ('cholesky_factor', f'{_LP}:262', _REGS, 'entry:cholesky_factor'),
     ('tree_sweep_fk', f'{_TP}:239', _TREE, 'entry:build_tree_sweep'),
     ('tree_sweep_dyn', f'{_TP}:449', _TREE, 'entry:build_tree_sweep'),
 ]
@@ -173,13 +176,14 @@ def phase_probe(torch, pkg, smi):
   ptxas = {name: [ln.strip() for ln in log.splitlines()
                   if 'registers' in ln or 'spill' in ln][:12]
            for name, log in logs.items()}
-  # The register design's six kernels (K1, K2, K3 in float32 and float64):
+  # The register design's eight kernels (K1-K4 in float32 and float64):
   # none may spill.
   regs = _ptxas_entries(logs.get('cholesky_regs', ''), 'cholesky_regs_')
-  check(len(regs) == 6, f'register-design kernels in the ptxas log: {regs}')
+  check(len(regs) == 8, f'register-design kernels in the ptxas log: {regs}')
   for label, v in regs.items():
     check(v.get('spill_stores') == 0 and v.get('spill_loads') == 0,
           f'{label} spills: {v}')
+  tree = _ptxas_entries(logs.get('tree_sweep', ''), 'tree_')
   emit({'phase': 'probe', 'torch': torch.__version__,
         'cuda': torch.version.cuda, 'python': sys.version.split()[0],
         'device': torch.cuda.get_device_name(0),
@@ -187,28 +191,36 @@ def phase_probe(torch, pkg, smi):
         'kernel_build_s': build_s,
         'nvcc_parallel_s': cuda_build.build_info.get('seconds'),
         'sources': sorted(cuda_build.sources()), 'ptxas': ptxas,
-        'register_design_ptxas': regs})
+        'register_design_ptxas': regs, 'tree_sweep_ptxas': tree})
+
+
+# The register design's kernel by its template flags (kEmitFactor, kSolve).
+_REG_KINDS = {('1', '1'): 'solve_factor', ('0', '1'): 'solve',
+              ('1', '0'): 'factor'}
 
 
 def _ptxas_entries(log, prefix):
   """Registers and spill bytes of each kernel whose mangled name holds
-  `prefix`, from nvcc's `-Xptxas -v` log, labelled kernel_type (K3, the
-  solve_factor kernel without its factor, as solve_type)."""
+  `prefix`, from nvcc's `-Xptxas -v` log, labelled kernel_type: the
+  register design's solve_factor kernel by its flags (K1 solve_factor, K3
+  solve, K4 factor).  Names that do not parse as a kernel's are left
+  out."""
   out, cur = {}, None
   for ln in log.splitlines():
     m = re.search(r"(?:Compiling entry function|Function properties for) "
                   r"'?([\w$]+)'?", ln)
     if m:
-      cur = m.group(1) if prefix in m.group(1) else None
-      if cur is not None:
-        # The kernel's own name follows its length; the anonymous
-        # namespace's name (which holds the file name) does not.
-        t = re.search(r'\d' + prefix + r'([a-z_]+?)I([fd])(Lb0E)?', cur)
-        kind = (t.group(1).replace('_factor', '') if t and t.group(3)
-                else t and t.group(1))
-        label = (f'{kind}_{"f32" if t.group(2) == "f" else "f64"}'
-                 if t else cur)
-        out.setdefault(cur, {'kernel': label})
+      # The kernel's own name follows its length; the anonymous
+      # namespace's name (which holds the file name) does not.
+      t = re.search(r'\d' + prefix + r'([a-z_]+?)I([fd])((?:L[bi]\d+E)*)E',
+                    m.group(1))
+      cur = None
+      if t:
+        kind, args = t.group(1), tuple(re.findall(r'L[bi](\d+)E', t.group(3)))
+        if kind == 'solve_factor':
+          kind = _REG_KINDS[args]
+        cur = f'{kind}_{"f32" if t.group(2) == "f" else "f64"}'
+        out.setdefault(cur, {})
       continue
     if cur is None:
       continue
@@ -219,7 +231,7 @@ def _ptxas_entries(log, prefix):
     m = re.search(r'Used (\d+) registers', ln)
     if m:
       out[cur]['registers'] = int(m.group(1))
-  return {v.pop('kernel'): v for v in out.values()}
+  return out
 
 
 def run_rollouts(torch, step, model, n, data, ctrls):
@@ -556,17 +568,16 @@ def phase_kernels(torch, pkg, main):
       kind = 'solve'
     # The library yardstick uses cholesky_ex, which does not synchronise to
     # check for failure (torch.linalg.cholesky does).
-    if name == 'cholesky_factor':
-      ms = _device_ms(torch, fn, 100)
-      extra = {'design': 'shared'}
-    else:
-      mode = {'cholesky_solve_factor': lc._MODE_SOLVE_FACTOR,
-              'cholesky_resolve_const': lc._MODE_RESOLVE,
-              'cholesky_solve': lc._MODE_SOLVE}[name]
-      src = fac if name == 'cholesky_resolve_const' else h
-      prev = lambda: lc._launch(mode, name, src, g, design='shared',
-                                want_factor=name == 'cholesky_solve_factor')
-      ms, extra = _design_turns(torch, lc, name, n, fn, prev)
+    mode = {'cholesky_solve_factor': lc._MODE_SOLVE_FACTOR,
+            'cholesky_resolve_const': lc._MODE_RESOLVE,
+            'cholesky_solve': lc._MODE_SOLVE,
+            'cholesky_factor': lc._MODE_FACTOR}[name]
+    src = fac if name == 'cholesky_resolve_const' else h
+    rhs = None if name == 'cholesky_factor' else g
+    prev = lambda: lc._launch(mode, name, src, rhs, design='shared',
+                              want_factor=name in ('cholesky_solve_factor',
+                                                   'cholesky_factor'))
+    ms, extra = _design_turns(torch, lc, name, n, fn, prev)
     if name == 'cholesky_solve':
       # K3 at the environment step's shape as well: its first B_ENV
       # matrices (a contiguous slice).
@@ -613,13 +624,13 @@ def _design_turns(torch, lc, name, n, fn, prev):
 
 
 def _rank_deficient_checks(torch, lc, n, dev, gen):
-  """K1 and K2 against their plain versions on a rank-deficient batch:
+  """K1, K2 and K4 against their plain versions on a rank-deficient batch:
   seeded SPD matrices with every third dof's row and column zeroed (a dof
   the Hessian does not see).  Those pivots are exact zeros at every step,
   so the clamp rsqrt(max(a_kk, 1e-12)) gives 1e6 in both versions and the
-  outputs stay finite (x_k = g_k 1e12 there).  x and K1's factor agree
-  with the plain versions on the kept and on the zeroed dofs, each part to
-  1e-4 of its own max-abs.  (A V V^T batch of rank 2 is no test of the clamp in float32:
+  outputs stay finite (x_k = g_k 1e12 there).  x and K1's and K4's factors
+  agree with the plain versions on the kept and on the zeroed dofs, each
+  part to 1e-4 of its own max-abs.  (A V V^T batch of rank 2 is no test of the clamp in float32:
   its Schur complement is rounding noise, the noise's negative pivots
   grow the next ones, and kernel and plain version both overflow.)"""
   a = torch.randn(B_PLAN, n, n, generator=gen, dtype=torch.float64)
@@ -632,7 +643,9 @@ def _rank_deficient_checks(torch, lc, n, dev, gen):
   x_p, fac_p = lc.solve_factor_plain(h, g)
   x2 = lc.cholesky_resolve_const(fac_p, g)
   x2_p = lc.resolve_plain(fac_p, g)
-  for what, t in (('K1 x', x), ('K1 factor', fac), ('K2 x', x2)):
+  fac4 = lc.cholesky_factor(h)
+  for what, t in (('K1 x', x), ('K1 factor', fac), ('K2 x', x2),
+                  ('K4 factor', fac4)):
     check(bool(torch.isfinite(t).all()), f'{what} not finite, rank-deficient')
   # The kept dofs' values are O(1) and the zeroed dofs' ~1e12 (x) or 1e6
   # (the factor's diagonal): each part is held to 1e-4 of its own max-abs.
@@ -640,10 +653,11 @@ def _rank_deficient_checks(torch, lc, n, dev, gen):
   low = torch.tril(torch.ones(n, n, dtype=torch.bool, device=dev))
   fac_kept = low & kept[:, None] & kept[None, :]
   parts = {'K1_x': (x, x_p, kept), 'K2_x': (x2, x2_p, kept),
-           'K1_factor': (fac, fac_p, fac_kept)}
+           'K1_factor': (fac, fac_p, fac_kept),
+           'K4_factor': (fac4, fac_p, fac_kept)}
   errs = {'zeroed_dofs': int(n - keep.sum().item())}
   for what, (got, want, mask) in parts.items():
-    other = (low & ~fac_kept) if what == 'K1_factor' else ~mask
+    other = (low & ~fac_kept) if what.endswith('_factor') else ~mask
     for part, m in (('kept', mask), ('zeroed', other)):
       err = (got[:, m] - want[:, m]).abs().max().item()
       scale = want[:, m].abs().max().item()
@@ -726,19 +740,21 @@ def phase_tree_sweep(torch, pkg, main):
     check(bool(torch.isfinite(out[key]).all()), f'{key} not finite')
     check(err <= 1e-4 * scale, f'tree sweep {key}: {err} > 1e-4 * {scale}')
     errs[key] = err / scale
-  # Float64 copy of 64 rollouts: both sides compute the same arithmetic in
-  # float64, limit 1e-10 relative.
+  # Float64 copies of 64 rollouts and of 37 (K5's rows then end in a
+  # partial 16-byte chunk: element stores, and in a partial tile): both
+  # sides compute the same arithmetic in float64, limit 1e-10 relative.
   model64, _ = common.reduced_planning_model(
       main['task'], device='cuda', dtype=torch.float64, **PLAN)
-  ins64 = [x[:, :64].double().contiguous() for x in ins]
-  out64 = tc.build_tree_sweep(model64)(*ins64)
-  ref64 = tc.tree_sweep_plain(model64, *ins64)
   errs64 = {}
-  for key, want in ref64.items():
-    err = (out64[key] - want).abs().max().item()
-    scale = max(want.abs().max().item(), 1.0)
-    check(err <= 1e-10 * scale, f'tree sweep f64 {key}: {err}')
-    errs64[key] = err / scale
+  for b64 in (64, 37):
+    ins64 = [x[:, :b64].double().contiguous() for x in ins]
+    out64 = tc.build_tree_sweep(model64)(*ins64)
+    ref64 = tc.tree_sweep_plain(model64, *ins64)
+    for key, want in ref64.items():
+      err = (out64[key] - want).abs().max().item()
+      scale = max(want.abs().max().item(), 1.0)
+      check(err <= 1e-10 * scale, f'tree sweep f64 B={b64} {key}: {err}')
+      errs64[f'{key}_B{b64}'] = err / scale
   # The kernel's joint-space inertia factors (float64 copy).
   qm = out['qm'].double().reshape(nv, nv, b).permute(2, 0, 1)
   info = torch.linalg.cholesky_ex(qm)[1]
@@ -767,6 +783,12 @@ def phase_tree_sweep(torch, pkg, main):
           model, *pre_args), 5),
       call_ms=_call_ms(torch, lambda: step._precompute_planes(
           model, *pre_args), 5))
+  grid, block = _launch_shape(torch, lambda: tc.tree_fk(model, *ins),
+                              'tree_fk_kernel')
+  timing['tree_sweep_fk']['cta'] = {
+      'rollouts': -(-b // grid[0]), 'ctas_per_tile': grid[1],
+      'threads': block[0] * block[1] * block[2], 'grid': grid,
+      'block': block}
   bounds = _tree_bounds(pkg['smooth'], model, b, 4)
   rows = {}
   for (name, t), (bound_ms, bound_by) in zip(timing.items(), bounds):
@@ -780,11 +802,65 @@ def phase_tree_sweep(torch, pkg, main):
         'shape': {'nbody': model.nbody, 'nv': nv, 'ngeom': model.ngeom,
                   'B': b}, 'dtype': 'float32'}
   emit({'phase': 'tree_sweep', 'batch': b, 'launches': launches,
-        'max_rel_err_f32': errs, 'max_rel_err_f64_64_rollouts': errs64,
+        'max_rel_err_f32': errs, 'max_rel_err_f64': errs64,
         'qm_factors': True, 'kernels': timing,
         'sweep_call_ms': sweep_call_ms,
+        'fk_host_us_by_op': _host_us_by_op(
+            torch, lambda: tc.tree_fk(model, *ins), 50),
         'precompute_planes': planes})
   return launches, rows
+
+
+def _launch_shape(torch, fn, kernel, reps=20):
+  """(grid, block) of the launches of the kernel whose name holds
+  `kernel` over `reps` calls of fn, from the kernel records of the
+  profiler's trace (written under build/ and removed)."""
+  from torch.profiler import ProfilerActivity, profile
+  fn()
+  torch.cuda.synchronize()
+  path = os.path.join(ROOT, 'build', f'launch_shape_{os.getpid()}.json')
+  os.makedirs(os.path.dirname(path), exist_ok=True)
+  seen = []
+  for _ in range(3):
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+      for _ in range(reps):
+        fn()
+      torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+      events = json.load(f).get('traceEvents', [])
+    os.remove(path)
+    kern = [e for e in events if e.get('cat') == 'kernel']
+    shapes = {(tuple(e['args']['grid']), tuple(e['args']['block']))
+              for e in kern if kernel in e.get('name', '')}
+    if shapes:
+      check(len(shapes) == 1, f'{kernel} launched at shapes {shapes}')
+      grid, block = shapes.pop()
+      return list(grid), list(block)
+    seen.append((len(events), [e.get('name', '')[:60] for e in kern][:3]))
+  check(False, f'the profiler saw no {kernel} launch in three passes '
+        f'(events, kernels: {seen})')
+
+
+def _host_us_by_op(torch, fn, reps):
+  """Host time per call (us) of fn under the profiler's CPU activity: the
+  whole call, and each operator's self time (what is left of the whole is
+  Python, the ctypes call and the profiler's own cost)."""
+  from torch.profiler import ProfilerActivity, profile, record_function
+  fn()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU]) as prof:
+    for _ in range(reps):
+      with record_function('call'):
+        fn()
+    torch.cuda.synchronize()
+  out = {}
+  for e in prof.key_averages():
+    if e.key == 'call':
+      out['call'] = e.cpu_time_total / reps
+    elif e.self_cpu_time_total > 0:
+      out[e.key] = e.self_cpu_time_total / reps
+  return out
 
 
 def phase_factor_entry(torch, pkg, main):

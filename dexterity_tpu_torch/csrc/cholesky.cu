@@ -13,7 +13,7 @@
 // applies one rank-1 trailing update per pivot, each a warp-wide step
 // closed by __syncwarp(); the forward and back substitutions run one pivot
 // per step across the lanes.  Several warps (independent matrices) share a
-// block.  It serves K4, and K1-K3 at sizes beyond the register design of
+// block.  It serves K1-K4 at sizes beyond the register design of
 // cholesky_regs.cu (n > 32).
 //
 // Numerics match the Pallas kernels: pivot clamp rsqrt(max(a_kk, 1e-12)),

@@ -1,16 +1,18 @@
 // Batched small dense Cholesky kernels for Hopper (sm_90a), register
 // design: K1 and K2 of the planner's Newton solve, K3 of the environment
-// step's.
+// step's, K4 of the cholesky_factor entry point.
 //
 // Port of dexterity_tpu/physics/linalg_pallas.py:
 //   MODE_SOLVE        <- _kernel               (cholesky_solve, K3)
 //   MODE_SOLVE_FACTOR <- _solve_factor_kernel  (cholesky_solve_factor, K1)
 //   MODE_RESOLVE      <- _resolve_kernel       (cholesky_resolve_const,
 //                                               cholesky_resolve, K2)
-// K3 is K1 without the packed factor's store: one kernel, whose template
-// flag kEmitFactor drops the factor's writes to the stage and its bulk
-// store.  cholesky.cu holds the shared-memory design, which serves K4 and
-// these three modes at n > 32.
+//   MODE_FACTOR       <- _factor_kernel        (cholesky_factor, K4)
+// K1, K3 and K4 are one kernel with two template flags: kEmitFactor keeps
+// the packed factor's writes to the stage and its bulk store (K1, K4),
+// kSolve the rhs, the forward substitution in the pivot loop and the back
+// substitution (K1, K3).  cholesky.cu holds the shared-memory design, which
+// serves these four modes at n > 32.
 //
 // Numerics match the Pallas kernels: right-looking order, pivot clamp
 // rsqrt(max(a_kk, 1e-12)), the same column scaling and rank-1 update order,
@@ -24,7 +26,8 @@
 // float32) K1 moves 2 B n^2 4 bytes (7.4 MB, 2.2 us at 3.35 TB/s), K2 and
 // K3 half that; the n^3 / 3 FMAs per matrix are far below the FP32 rate.  So
 // the floor is bytes, and what stands above it is the latency of the
-// n-step dependent chain (pivot k + 1 needs pivot k's update).  What the
+// n-step dependent chain (pivot k + 1 needs pivot k's update).  K4 moves
+// K1's bytes less the two vectors and runs the same chain.  What the
 // design does about each:
 //   - bytes: each matrix is read once, by one 1-D TMA bulk copy
 //     (cp.async.bulk with an mbarrier) into a dense shared-memory stage
@@ -61,6 +64,7 @@ constexpr int kWarp = 32;
 constexpr int MODE_SOLVE = 0;
 constexpr int MODE_SOLVE_FACTOR = 1;
 constexpr int MODE_RESOLVE = 2;
+constexpr int MODE_FACTOR = 3;
 constexpr int kRegsMaxWarps = 4;
 
 __device__ __forceinline__ float clamp_rsqrt(float x) {
@@ -219,10 +223,11 @@ __device__ __forceinline__ T back_substitute(T y, const T (&c)[32],
   return y;
 }
 
-// K1 (kEmitFactor): solve + packed factor; K3: the solve alone.  One
-// resident block per SM is asked for, so ptxas may take up to 255
-// registers.
-template <typename T, bool kEmitFactor>
+// K1 (kEmitFactor, kSolve): solve + packed factor; K3 (kSolve): the solve
+// alone; K4 (kEmitFactor): the packed factor alone, no rhs read and no x
+// written.  One resident block per SM is asked for, so ptxas may take up
+// to 255 registers.
+template <typename T, bool kEmitFactor, bool kSolve>
 __global__ void __launch_bounds__(kRegsMaxWarps * kWarp, 1)
     cholesky_regs_solve_factor(const T* __restrict__ a_in,
                                const T* __restrict__ g_in,
@@ -243,7 +248,7 @@ __global__ void __launch_bounds__(kRegsMaxWarps * kWarp, 1)
   T* s = cols + 32 * S;
   const int64_t nn = (int64_t)n * n;
   // Loaded first: its latency overlaps the matrix's copy.
-  T y = lane < n ? g_in[mat * n + lane] : T(0);
+  T y = kSolve && lane < n ? g_in[mat * n + lane] : T(0);
   stage_in(s, a_in + mat * nn, n * n, reinterpret_cast<uint64_t*>(base),
            lane);
   T a[32];
@@ -264,15 +269,17 @@ __global__ void __launch_bounds__(kRegsMaxWarps * kWarp, 1)
 #pragma unroll
   for (int k = 0; k < 32; ++k) {
     T* col = cols + k * S;
-    const T yk = bcast(y, k) * inv;
     const bool below = lane > k, at = lane == k;
     const T lik = a[k] * inv;
     const T lm = below ? lik : T(0);  // l_ik below the pivot, 0 elsewhere
     col[lane] = lm;
     if (kEmitFactor && k < n && lane < n && lane >= k)
       srow[k] = at ? inv : lik;
-    y = at ? yk : fma(-lm, yk, y);
-    inv_diag = at ? inv : inv_diag;
+    if constexpr (kSolve) {
+      const T yk = bcast(y, k) * inv;
+      y = at ? yk : fma(-lm, yk, y);
+      inv_diag = at ? inv : inv_diag;
+    }
     if (k + 1 < 32) {
       // Lane k + 1 updates its own diagonal with its own l_{k+1,k} (the
       // FFMA the column update below repeats, to the bit).
@@ -300,20 +307,22 @@ __global__ void __launch_bounds__(kRegsMaxWarps * kWarp, 1)
   else
     __syncwarp();
 
-  // Column `lane` of L, from the columns of the factor loop.
-  T c[32];
-  const V* mine = reinterpret_cast<const V*>(cols + lane * S);
+  if constexpr (kSolve) {
+    // Column `lane` of L, from the columns of the factor loop.
+    T c[32];
+    const V* mine = reinterpret_cast<const V*>(cols + lane * S);
 #pragma unroll
-  for (int q = 0; q < 32 / kV; ++q) {
-    const V v = mine[q];
+    for (int q = 0; q < 32 / kV; ++q) {
+      const V v = mine[q];
 #pragma unroll
-    for (int e = 0; e < kV; ++e) {
-      const int k = q * kV + e;
-      c[k] = k > lane ? elem(v, e) : T(0);
+      for (int e = 0; e < kV; ++e) {
+        const int k = q * kV + e;
+        c[k] = k > lane ? elem(v, e) : T(0);
+      }
     }
+    y = back_substitute<T>(y, c, inv_diag, lane);
+    if (lane < n) x_out[mat * n + lane] = y;
   }
-  y = back_substitute<T>(y, c, inv_diag, lane);
-  if (lane < n) x_out[mat * n + lane] = y;
   if (kEmitFactor) stage_out_wait(lane);
 }
 
@@ -371,7 +380,7 @@ cudaError_t allow_smem(KernelT kernel, size_t smem) {
 template <typename T>
 int dispatch_regs(int mode, const void* a, const void* g, void* x, void* fac,
                   int64_t batch, int n, int warps_per_block, void* stream) {
-  if (mode < MODE_SOLVE || mode > MODE_RESOLVE || n < 1 ||
+  if (mode < MODE_SOLVE || mode > MODE_FACTOR || n < 1 ||
       n > 32 || warps_per_block < 1 || warps_per_block > kRegsMaxWarps)
     return (int)cudaErrorInvalidValue;
   if (batch <= 0) return (int)cudaSuccess;
@@ -382,8 +391,10 @@ int dispatch_regs(int mode, const void* a, const void* g, void* x, void* fac,
   cudaStream_t st = (cudaStream_t)stream;
   if (mode != MODE_RESOLVE) {
     auto kernel = mode == MODE_SOLVE_FACTOR
-                      ? cholesky_regs_solve_factor<T, true>
-                      : cholesky_regs_solve_factor<T, false>;
+                      ? cholesky_regs_solve_factor<T, true, true>
+                  : mode == MODE_FACTOR
+                      ? cholesky_regs_solve_factor<T, true, false>
+                      : cholesky_regs_solve_factor<T, false, true>;
     const cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return (int)err;
     kernel<<<grid, block, smem, st>>>((const T*)a, (const T*)g, (T*)x,
@@ -403,9 +414,10 @@ int dispatch_regs(int mode, const void* a, const void* g, void* x, void* fac,
 extern "C" {
 
 // mode: 0 solve (K3), 1 solve + packed factor (K1), 2 resolve against a
-// packed factor (K2); 1 <= n <= 32, at most 4 warps per block.
-// elem_bytes: 4 (float) or 8 (double).  a: (batch, n, n) matrices or packed
-// factors; g: (batch, n); x: (batch, n) out; fac: (batch, n, n) out (mode 1,
+// packed factor (K2), 3 packed factor (K4); 1 <= n <= 32, at most 4 warps
+// per block.  elem_bytes: 4 (float) or 8 (double).  a: (batch, n, n)
+// matrices or packed factors; g: (batch, n) (unused in mode 3); x:
+// (batch, n) out (unused in mode 3); fac: (batch, n, n) out (modes 1 and 3,
 // else unused).  Returns the cudaError_t of the launch (0 on success).
 int dex_cholesky_regs(int mode, int elem_bytes, const void* a, const void* g,
                       void* x, void* fac, int64_t batch, int n,

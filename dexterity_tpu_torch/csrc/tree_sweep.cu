@@ -17,30 +17,34 @@
 //
 // Design.  The Pallas kernels turned the tree walk into one-hot matmuls and
 // pointer jumping, a device for the TPU's MXU.  Here K5 gives one CTA a tile
-// of rollouts: one thread per rollout walks the bodies in index order,
-// parents first, composing world poses into shared memory; after a barrier
-// the CTA's threads spread over (body | dof | geom | tendon, rollout) items
-// to write the outputs.  K6 keeps _kernel_dyn's formulation, each recursion
-// a gather over static tables: a CTA per 8 rollouts (128 CTAs at B = 1024)
-// whose 512 threads share every phase (see K6 below).
+// of rollouts: every body's pose in its parent's frame is computed at once,
+// a thread per (body, rollout), and the world poses are composed level by
+// level over a static table of the bodies by tree depth; then the CTA's
+// threads spread over (body | dof | geom | tendon, 16-byte chunk of
+// rollouts) to write the outputs (see K5 below).  K6 keeps _kernel_dyn's
+// formulation, each recursion a gather over static tables: a CTA per 8
+// rollouts (128 CTAs at B = 1024) whose 512 threads share every phase (see
+// K6 below).
 //
 // Bound: at the reorient planning model and B = 1024 (float32), K5 moves
 // ~15.4 MB (4.6 us at 3.35 TB/s) and K6 ~6.0 MB (1.8 us); their arithmetic is
-// far below the FP32 rate, so both are memory-bound on paper.  K5 is
-// latency-bound along its serial per-rollout body walk.  K6's phases are
-// short independent sums; what stands above its bound is the latency of
-// six dependent phases and of its loads, which cp.async issues all at once.
+// far below the FP32 rate, so both are memory-bound on paper.  What stands
+// above the bound is latency: for K5 the loads, then one barrier per tree
+// level (10 for the hand), then the output phase; for K6 six dependent
+// phases.  Both issue their loads all at once by cp.async.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-// K6's int segments (I_DOF_BODY .. I_QM_KIND) come last, one block.
+// K5 stages the int buffer from its header through I_DOF_BODY; K6's int
+// segments (I_DOF_BODY .. I_QM_KIND) come last, one block.
 enum IntSeg {
   I_BODY_PARENT, I_BODY_JTYPE, I_BODY_QADR, I_BODY_MOCAP, I_DOF_JTYPE,
-  I_DOF_JOFS, I_GEOM_BODY, I_DOF_BODY, I_BODY_SUB_PTR, I_BODY_SUB,
-  I_BODY_ANCDOF_PTR, I_BODY_ANCDOF, I_QM_KIND, N_INT_SEGS
+  I_DOF_JOFS, I_GEOM_BODY, I_LEVEL_PTR, I_LEVEL_BODY, I_DOF_BODY,
+  I_BODY_SUB_PTR, I_BODY_SUB, I_BODY_ANCDOF_PTR, I_BODY_ANCDOF, I_QM_KIND,
+  N_INT_SEGS
 };
 enum FloatSeg {
   F_BODY_POS, F_BODY_QUAT, F_BODY_JAXIS, F_BODY_JPOS, F_BODY_IPOS,
@@ -149,66 +153,265 @@ __device__ __forceinline__ void inertia_apply(const T p[10], const T m6[6],
   out[5] = mm * vz + (wx * hy - wy * hx);
 }
 
-// ---------------------------------------------------------------------------
-// K5: FK, frames, body10, tendons.  One CTA per tile of `tile` rollouts;
-// shared memory holds the tile's world poses, [(c * nbody + b) * tile + t]
-// for c in (xpos 0..2, xquat 3..6).
-// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Copies of 4, 8 or 16 bytes from global to shared memory with no register
+// round trip (cp.async); cp_async_wait() before the barrier that publishes
+// the stage.
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(__cvta_generic_to_global(src)), "n"(kBytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return ((uintptr_t)p & 15u) == 0;
+}
 
 template <typename T>
-__global__ void tree_fk_kernel(Tables<T> tab, Dims d,
-                               const T* __restrict__ qpos,
-                               const T* __restrict__ mpos,
-                               const T* __restrict__ mquat,
-                               const T* __restrict__ qvel,
-                               T* __restrict__ xpos, T* __restrict__ xquat,
-                               T* __restrict__ cdof, T* __restrict__ gpos,
-                               T* __restrict__ gmat, T* __restrict__ xipos,
-                               T* __restrict__ body10,
-                               T* __restrict__ ten_length,
-                               T* __restrict__ ten_velocity, int64_t B,
-                               int tile) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* pose = reinterpret_cast<T*>(smem_raw);
-  const int nb = d.nbody;
-  const int64_t r0 = (int64_t)blockIdx.x * tile;
-  const int tid = threadIdx.x;
-  auto P = [&](int c, int b, int t) -> T& {
-    return pose[((size_t)c * nb + b) * tile + t];
-  };
+struct Vec16;
+template <>
+struct Vec16<float> {
+  using type = float4;
+};
+template <>
+struct Vec16<double> {
+  using type = double2;
+};
 
-  // Phase 1: one thread per rollout walks the bodies, parents first.
-  if (tid < tile && r0 + tid < B) {
-    const int64_t r = r0 + tid;
-    const int* parent = tab.iseg(I_BODY_PARENT);
-    const int* jtype = tab.iseg(I_BODY_JTYPE);
-    const int* qadr = tab.iseg(I_BODY_QADR);
-    const int* mocap = tab.iseg(I_BODY_MOCAP);
-    const T* bpos = tab.fseg(F_BODY_POS);
-    const T* bquat = tab.fseg(F_BODY_QUAT);
-    const T* jaxis = tab.fseg(F_BODY_JAXIS);
-    const T* jpos = tab.fseg(F_BODY_JPOS);
-    // The world body is the identity, whatever its stored pose.
-    for (int c = 0; c < 7; ++c) P(c, 0, tid) = c == 3 ? T(1) : T(0);
-    for (int b = 1; b < nb; ++b) {
-      Vec<T> lp;
-      Quat<T> lq;
+// A row of kN rollouts' values in registers (kN a multiple of 16 bytes),
+// moved between shared memory and registers as 16-byte vectors (float4 or
+// double2): K6's tile rows, K5's 16-byte chunks.
+template <typename T, int kN>
+struct TileRow {
+  static constexpr int kPer16 = 16 / sizeof(T);
+  using V = typename Vec16<T>::type;
+  T v[kN];
+
+  __device__ __forceinline__ void load(const T* s) {  // shared, aligned
+#pragma unroll
+    for (int i = 0; i < kN / kPer16; ++i) {
+      const V x = reinterpret_cast<const V*>(s)[i];
+      if constexpr (kPer16 == 4) {
+        v[4 * i] = x.x, v[4 * i + 1] = x.y, v[4 * i + 2] = x.z,
+                  v[4 * i + 3] = x.w;
+      } else {
+        v[2 * i] = x.x, v[2 * i + 1] = x.y;
+      }
+    }
+  }
+  __device__ __forceinline__ void store(T* s) const {  // 16-byte aligned
+#pragma unroll
+    for (int i = 0; i < kN / kPer16; ++i) {
+      V x;
+      if constexpr (kPer16 == 4) {
+        x.x = v[4 * i], x.y = v[4 * i + 1], x.z = v[4 * i + 2],
+        x.w = v[4 * i + 3];
+      } else {
+        x.x = v[2 * i], x.y = v[2 * i + 1];
+      }
+      reinterpret_cast<V*>(s)[i] = x;
+    }
+  }
+  // The row's first `live` rollouts to a global output row (dst is the
+  // first one's place): vector stores where the row is whole and aligned.
+  // (Every index into v is a constant, or v would leave the registers for
+  // local memory.)
+  __device__ __forceinline__ void put(T* dst, int live) const {
+    if (live == kN && aligned16(dst)) {
+      store(dst);
+    } else {
+#pragma unroll
+      for (int t = 0; t < kN; ++t)
+        if (t < live) dst[t] = v[t];
+    }
+  }
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int t = 0; t < kN; ++t) v[t] = T(0);
+  }
+  __device__ __forceinline__ void fma(const TileRow& x, const TileRow& y) {
+#pragma unroll
+    for (int t = 0; t < kN; ++t) v[t] += x.v[t] * y.v[t];
+  }
+  __device__ __forceinline__ void add(const TileRow& x) {
+#pragma unroll
+    for (int t = 0; t < kN; ++t) v[t] += x.v[t];
+  }
+};
+
+// Copies `count` elements from global src to shared dst (16-byte aligned)
+// by cp.async over the CTA's threads: 16 bytes a copy where src is aligned
+// too, the tail element by element.
+template <typename E>
+__device__ __forceinline__ void stage_block(E* dst, const E* src, int count) {
+  constexpr int kPer = 16 / sizeof(E);
+  const int n16 = aligned16(src) ? count / kPer : 0;
+  for (int i = threadIdx.x; i < n16; i += blockDim.x)
+    cp_async<16>(dst + i * kPer, src + i * kPer);
+  for (int i = n16 * kPer + threadIdx.x; i < count; i += blockDim.x)
+    cp_async<sizeof(E)>(dst + i, src + i);
+}
+
+// ---------------------------------------------------------------------------
+// K5: FK, frames, body10, tendons.  A CTA per (tile of kFkTile<T> rollouts,
+// slice of the output items): blockIdx.x picks the tile, blockIdx.y one of
+// kFkSlices slices; kFkThreads threads.  Four phases, a __syncthreads() after each step:
+//   1. stage: the tile's input rows and the tables, by cp.async into shared
+//      memory, every copy issued at once (the sizes follow from Dims, so
+//      none waits on the table header);
+//   2. local poses: a thread per (body, rollout) computes the body's pose in
+//      its parent's frame from its joint or mocap rows (the world: the
+//      identity); no body waits on another;
+//   3. world poses, level by level over the table of the bodies by tree
+//      depth: a thread per (body, rollout) of the level composes x = parent
+//      o local in place, one barrier per level (for the hand 9 dependent
+//      steps, where a walk takes 32);
+//   4. outputs: a thread per (item, 16-byte chunk of the tile's rollouts)
+//      of the CTA's slice, the items being body poses, body inertias
+//      (body10), dofs, geoms and tendons; it computes the item's rows for
+//      the chunk's rollouts and stores each row as one 16-byte vector where
+//      the chunk is whole and aligned, else element by element.
+//      Consecutive threads take consecutive chunks of a row.  (Writing
+//      finished levels' items during the later compositions was slower on
+//      the card: the levels' barriers then waited on the outputs.)
+// What sets the tile: the output rows are B apart, so a CTA writes a
+// tile's values of each of ~3,700 rows, and on the H100 that store stream
+// runs far faster when each piece is a whole 128-byte line than when it is
+// smaller.  So a tile is a line (32 floats, 16 doubles), and the items are
+// split over kFkSlices CTAs per tile to keep the SMs busy.  Every CTA of a
+// tile repeats phases 1-3, in parallel.
+// The per-body arithmetic and its order are those of the walk it replaced.
+// Shared memory, each region 16-byte aligned, rows of a tile's values:
+//   pose: 7 nbody rows, c * nbody + b with c over xpos 0..2, xquat 3..6
+//     (the local pose, then in place the world pose);
+//   in: qpos (nq rows), qvel (nv), mocap pos (3 nmocap) and quat
+//     (4 nmocap), component-major: the tile's inputs, zeros past B;
+//   the float tables whole, then the int buffer from its header through
+//   dof_body, so a table offset reads the same in shared memory.
+// ---------------------------------------------------------------------------
+
+// K5's CTA shape: a tile of one 128-byte line of rollouts (its bytes are
+// mirrored by tree_cuda.py, checked through dex_tree_layout), kFkSlices
+// CTAs per tile, kFkThreads threads each.
+constexpr int kFkLine = 128;
+template <typename T>
+constexpr int kFkTile = kFkLine / (int)sizeof(T);
+constexpr int kFkSlices = 4;
+constexpr int kFkThreads = 256;
+
+__host__ __device__ inline size_t round16(size_t x) {
+  return (x + 15) & ~(size_t)15;
+}
+__host__ __device__ inline int fk_in_rows(Dims d) {
+  return d.nq + d.nv + 7 * d.nmocap;
+}
+// Entries of the float buffer: the FloatSeg segments' sizes.
+__host__ __device__ inline int fk_floats(Dims d) {
+  return 24 * d.nbody + 8 * d.nv + 7 * d.ngeom + 3 +
+         d.ntendon * (d.nq + d.nv);
+}
+// Entries of the int buffer from its header through dof_body, at most: the
+// level pointers number at most nbody + 1 (a chain).  A copy of this bound
+// stays inside the buffer, since K6's segments (nbody + 1 subtree pointers
+// first) follow dof_body.
+__host__ __device__ inline int fk_ints(Dims d) {
+  return N_INT_SEGS + N_FLOAT_SEGS + 6 * d.nbody + 3 * d.nv + d.ngeom + 1;
+}
+// K5's shared memory in bytes (tree_cuda._fk_smem mirrors it).
+__host__ __device__ inline size_t fk_smem_bytes(Dims d, int elem) {
+  return (size_t)(7 * d.nbody + fk_in_rows(d)) * kFkLine +
+         round16((size_t)fk_floats(d) * elem) +
+         round16((size_t)fk_ints(d) * 4);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kFkThreads)
+    tree_fk_kernel(Tables<T> tab, Dims d, const T* __restrict__ qpos,
+                   const T* __restrict__ qvel, const T* __restrict__ mpos,
+                   const T* __restrict__ mquat, T* __restrict__ out,
+                   int64_t B) {
+  using C = TileRow<T, 16 / sizeof(T)>;  // a 16-byte chunk of rollouts
+  constexpr int kTile = kFkTile<T>, kV = C::kPer16, kChunks = kTile / kV;
+  static_assert(kTile % kV == 0, "a tile is whole 16-byte chunks");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nb = d.nbody, nv = d.nv, nq = d.nq, ng = d.ngeom,
+            nt = d.ntendon, nm = d.nmocap;
+  const int tid = threadIdx.x;
+  const int64_t r0 = (int64_t)blockIdx.x * kTile;
+  const int live = B - r0 < kTile ? (int)(B - r0) : kTile;
+  T* pose = reinterpret_cast<T*>(smem_raw);
+  T* s_in = pose + 7 * nb * kTile;
+  T* s_tf = s_in + fk_in_rows(d) * kTile;
+  int* s_ti = reinterpret_cast<int*>(
+      reinterpret_cast<unsigned char*>(s_tf) +
+      round16((size_t)fk_floats(d) * sizeof(T)));
+  auto P = [&](int c, int b) -> T* { return pose + (c * nb + b) * kTile; };
+  auto in = [&](int row) -> const T* { return s_in + row * kTile; };
+
+  // 1. Stage the inputs, a 16-byte chunk a copy where it is whole and
+  //    aligned, and the tables.
+  const int n_in = fk_in_rows(d);
+  for (int u = tid; u < n_in * kChunks; u += kFkThreads) {
+    const int row = u / kChunks, t0 = (u - row * kChunks) * kV;
+    const T* src =
+        (row < nq            ? qpos + (int64_t)row * B
+         : row < nq + nv     ? qvel + (int64_t)(row - nq) * B
+         : row < nq + nv + 3 * nm ? mpos + (int64_t)(row - nq - nv) * B
+                              : mquat + (int64_t)(row - nq - nv - 3 * nm) * B) +
+        r0 + t0;
+    T* dst = s_in + row * kTile + t0;
+    if (t0 + kV <= live && aligned16(src)) {
+      cp_async<16>(dst, src);
+      continue;
+    }
+    for (int e = 0; e < kV; ++e) {
+      if (t0 + e < live)
+        cp_async<sizeof(T)>(dst + e, src + e);
+      else
+        dst[e] = T(0);
+    }
+  }
+  stage_block(s_tf, tab.tf, fk_floats(d));
+  stage_block(s_ti, tab.ti, fk_ints(d));
+  cp_async_wait();
+  __syncthreads();
+  const Tables<T> st{s_ti, s_tf};
+
+  // 2. Every body's pose in its parent's frame.
+  {
+    const int* jtype = st.iseg(I_BODY_JTYPE);
+    const int* qadr = st.iseg(I_BODY_QADR);
+    const int* mocap = st.iseg(I_BODY_MOCAP);
+    const T* bpos = st.fseg(F_BODY_POS);
+    const T* bquat = st.fseg(F_BODY_QUAT);
+    const T* jaxis = st.fseg(F_BODY_JAXIS);
+    const T* jpos = st.fseg(F_BODY_JPOS);
+    for (int u = tid; u < nb * kTile; u += kFkThreads) {
+      const int b = u / kTile, t = u % kTile;
+      Vec<T> lp = {T(0), T(0), T(0)};
+      Quat<T> lq = {T(1), T(0), T(0), T(0)};
       const int m = mocap[b];
       const int jt = jtype[b];
-      if (m >= 0) {
-        // Mocap rows are component-major: row c * nmocap + m.
-        lp = {mpos[(0 * d.nmocap + m) * B + r],
-              mpos[(1 * d.nmocap + m) * B + r],
-              mpos[(2 * d.nmocap + m) * B + r]};
-        lq = {mquat[(0 * d.nmocap + m) * B + r],
-              mquat[(1 * d.nmocap + m) * B + r],
-              mquat[(2 * d.nmocap + m) * B + r],
-              mquat[(3 * d.nmocap + m) * B + r]};
+      if (b == 0) {
+        // The world body is the identity, whatever its stored pose.
+      } else if (m >= 0) {
+        const int p0 = nq + nv + m, q0 = p0 + 3 * nm;
+        lp = {in(p0)[t], in(p0 + nm)[t], in(p0 + 2 * nm)[t]};
+        lq = {in(q0)[t], in(q0 + nm)[t], in(q0 + 2 * nm)[t],
+              in(q0 + 3 * nm)[t]};
       } else if (jt == kFree) {
-        const int64_t a = qadr[b];
-        lp = {qpos[a * B + r], qpos[(a + 1) * B + r], qpos[(a + 2) * B + r]};
-        const Quat<T> raw = {qpos[(a + 3) * B + r], qpos[(a + 4) * B + r],
-                             qpos[(a + 5) * B + r], qpos[(a + 6) * B + r]};
+        const int a = qadr[b];
+        lp = {in(a)[t], in(a + 1)[t], in(a + 2)[t]};
+        const Quat<T> raw = {in(a + 3)[t], in(a + 4)[t], in(a + 5)[t],
+                             in(a + 6)[t]};
         const T nsq =
             raw.w * raw.w + raw.x * raw.x + raw.y * raw.y + raw.z * raw.z;
         const T norm = sqrt(nsq > T(1e-24) ? nsq : T(1e-24));
@@ -219,7 +422,7 @@ __global__ void tree_fk_kernel(Tables<T> tab, Dims d,
         Quat<T> dq = {T(1), T(0), T(0), T(0)};
         Vec<T> dp = {T(0), T(0), T(0)};
         if (jt == kHinge) {
-          const T q = qpos[(int64_t)qadr[b] * B + r];
+          const T q = in(qadr[b])[t];
           T s, c;
           sin_cos(T(0.5) * q, &s, &c);
           const Vec<T> ax = vec3(jaxis + 3 * b);
@@ -229,7 +432,7 @@ __global__ void tree_fk_kernel(Tables<T> tab, Dims d,
           const Vec<T> rj = rotate(dq, jp);
           dp = {jp.x - rj.x, jp.y - rj.y, jp.z - rj.z};
         } else if (jt == kSlide) {
-          const T q = qpos[(int64_t)qadr[b] * B + r];
+          const T q = in(qadr[b])[t];
           const Vec<T> ax = vec3(jaxis + 3 * b);
           dp = {ax.x * q, ax.y * q, ax.z * q};
         }
@@ -239,120 +442,209 @@ __global__ void tree_fk_kernel(Tables<T> tab, Dims d,
               bpos[3 * b + 2] + rp.z};
         lq = qmul(bq, dq);
       }
-      const int p = parent[b];
-      const Vec<T> pp = {P(0, p, tid), P(1, p, tid), P(2, p, tid)};
-      const Quat<T> pq = {P(3, p, tid), P(4, p, tid), P(5, p, tid),
-                          P(6, p, tid)};
-      const Vec<T> rp = rotate(pq, lp);
-      const Quat<T> xq = qmul(pq, lq);
-      P(0, b, tid) = pp.x + rp.x;
-      P(1, b, tid) = pp.y + rp.y;
-      P(2, b, tid) = pp.z + rp.z;
-      P(3, b, tid) = xq.w;
-      P(4, b, tid) = xq.x;
-      P(5, b, tid) = xq.y;
-      P(6, b, tid) = xq.z;
+      P(0, b)[t] = lp.x, P(1, b)[t] = lp.y, P(2, b)[t] = lp.z;
+      P(3, b)[t] = lq.w, P(4, b)[t] = lq.x, P(5, b)[t] = lq.y,
+      P(6, b)[t] = lq.z;
     }
   }
   __syncthreads();
 
-  // Phase 2: (item, rollout) pairs over the CTA's threads.
-  const int nv = d.nv, ng = d.ngeom;
-  const int items = nb + nv + ng + d.ntendon;
-  for (int i = tid; i < items * tile; i += blockDim.x) {
-    const int item = i / tile;
-    const int t = i - item * tile;
-    const int64_t r = r0 + t;
-    if (r >= B) continue;
-    if (item < nb) {
-      // Body: pose, inertial frame, body10 about the origin.
-      const int b = item;
-      const Vec<T> xp = {P(0, b, t), P(1, b, t), P(2, b, t)};
-      const Quat<T> xq = {P(3, b, t), P(4, b, t), P(5, b, t), P(6, b, t)};
-      xpos[(0 * nb + b) * B + r] = xp.x;
-      xpos[(1 * nb + b) * B + r] = xp.y;
-      xpos[(2 * nb + b) * B + r] = xp.z;
-      xquat[(0 * nb + b) * B + r] = xq.w;
-      xquat[(1 * nb + b) * B + r] = xq.x;
-      xquat[(2 * nb + b) * B + r] = xq.y;
-      xquat[(3 * nb + b) * B + r] = xq.z;
-      const Vec<T> rp = rotate(xq, vec3(tab.fseg(F_BODY_IPOS) + 3 * b));
-      const T cx = xp.x + rp.x, cy = xp.y + rp.y, cz = xp.z + rp.z;
-      xipos[(0 * nb + b) * B + r] = cx;
-      xipos[(1 * nb + b) * B + r] = cy;
-      xipos[(2 * nb + b) * B + r] = cz;
-      T im[9];
-      quat_to_mat(qmul(xq, quat4(tab.fseg(F_BODY_IQUAT) + 4 * b)), im);
-      const T* in = tab.fseg(F_BODY_INERTIA) + 3 * b;
-      const T m = tab.fseg(F_BODY_MASS)[b];
-      auto iw = [&](int a, int c) {
-        return in[0] * im[3 * a] * im[3 * c] +
-               in[1] * im[3 * a + 1] * im[3 * c + 1] +
-               in[2] * im[3 * a + 2] * im[3 * c + 2];
-      };
-      const T cc = cx * cx + cy * cy + cz * cz;
-      const T p10[10] = {m, m * cx, m * cy, m * cz,
-                         iw(0, 0) + m * (cc - cx * cx), iw(0, 1) - m * cx * cy,
-                         iw(0, 2) - m * cx * cz, iw(1, 1) + m * (cc - cy * cy),
-                         iw(1, 2) - m * cy * cz, iw(2, 2) + m * (cc - cz * cz)};
-      for (int k = 0; k < 10; ++k) body10[((int64_t)k * nb + b) * B + r] = p10[k];
-    } else if (item < nb + nv) {
-      // Dof: motion axis about the world origin, rows [ang(3), lin(3)].
-      const int v = item - nb;
-      const int b = tab.iseg(I_DOF_BODY)[v];
-      const int jt = tab.iseg(I_DOF_JTYPE)[v];
-      const Vec<T> xp = {P(0, b, t), P(1, b, t), P(2, b, t)};
-      const Quat<T> xq = {P(3, b, t), P(4, b, t), P(5, b, t), P(6, b, t)};
-      Vec<T> ang = {T(0), T(0), T(0)}, lin = {T(0), T(0), T(0)};
-      if (jt == kHinge) {
-        ang = rotate(xq, vec3(tab.fseg(F_DOF_JAXIS) + 3 * v));
-        const Vec<T> rj = rotate(xq, vec3(tab.fseg(F_DOF_JPOS) + 3 * v));
-        lin = cross(ang, Vec<T>{-(xp.x + rj.x), -(xp.y + rj.y),
-                                -(xp.z + rj.z)});
-      } else if (jt == kSlide) {
-        lin = rotate(xq, vec3(tab.fseg(F_DOF_JAXIS) + 3 * v));
-      } else if (jt == kFree) {
-        const int a = tab.iseg(I_DOF_JOFS)[v];
-        if (a < 3) {
-          // Translational dofs: world axes.
-          lin = {T(a == 0), T(a == 1), T(a == 2)};
-        } else {
-          // Rotational dofs: the body frame's columns, about the origin.
-          T mat[9];
-          quat_to_mat(xq, mat);
-          ang = {mat[a - 3], mat[3 + a - 3], mat[6 + a - 3]};
-          lin = cross(ang, Vec<T>{-xp.x, -xp.y, -xp.z});
-        }
+  // 3. World poses, level by level: x_b = x_parent o local_b.
+  {
+    const int* parent = st.iseg(I_BODY_PARENT);
+    const int* lptr = st.iseg(I_LEVEL_PTR);
+    const int* lbody = st.iseg(I_LEVEL_BODY);
+    const int nlev = s_ti[I_LEVEL_BODY] - s_ti[I_LEVEL_PTR] - 1;
+    for (int l = 1; l < nlev; ++l) {
+      const int first = lptr[l], n = (lptr[l + 1] - first) * kTile;
+      for (int u = tid; u < n; u += kFkThreads) {
+        const int b = lbody[first + u / kTile], t = u % kTile;
+        const int p = parent[b];
+        const Vec<T> pp = {P(0, p)[t], P(1, p)[t], P(2, p)[t]};
+        const Quat<T> pq = {P(3, p)[t], P(4, p)[t], P(5, p)[t], P(6, p)[t]};
+        const Vec<T> lp = {P(0, b)[t], P(1, b)[t], P(2, b)[t]};
+        const Quat<T> lq = {P(3, b)[t], P(4, b)[t], P(5, b)[t], P(6, b)[t]};
+        const Vec<T> rp = rotate(pq, lp);
+        const Quat<T> xq = qmul(pq, lq);
+        P(0, b)[t] = pp.x + rp.x, P(1, b)[t] = pp.y + rp.y,
+        P(2, b)[t] = pp.z + rp.z;
+        P(3, b)[t] = xq.w, P(4, b)[t] = xq.x, P(5, b)[t] = xq.y,
+        P(6, b)[t] = xq.z;
       }
-      cdof[((int64_t)0 * nv + v) * B + r] = ang.x;
-      cdof[((int64_t)1 * nv + v) * B + r] = ang.y;
-      cdof[((int64_t)2 * nv + v) * B + r] = ang.z;
-      cdof[((int64_t)3 * nv + v) * B + r] = lin.x;
-      cdof[((int64_t)4 * nv + v) * B + r] = lin.y;
-      cdof[((int64_t)5 * nv + v) * B + r] = lin.z;
-    } else if (item < nb + nv + ng) {
+      __syncthreads();
+    }
+  }
+
+  // 4. Outputs: rows of the one (rows, B) buffer, in tree_cuda's order;
+  //    this CTA's slice is a contiguous run of the (item, chunk) units.
+  T* o_xpos = out;
+  T* o_xquat = o_xpos + (int64_t)3 * nb * B;
+  T* o_cdof = o_xquat + (int64_t)4 * nb * B;
+  T* o_gpos = o_cdof + (int64_t)6 * nv * B;
+  T* o_gmat = o_gpos + (int64_t)3 * ng * B;
+  T* o_xipos = o_gmat + (int64_t)9 * ng * B;
+  T* o_b10 = o_xipos + (int64_t)3 * nb * B;
+  T* o_tlen = o_b10 + (int64_t)10 * nb * B;
+  T* o_tvel = o_tlen + (int64_t)nt * B;
+  const int units = (2 * nb + nv + ng + nt) * kChunks;
+  const int u_end = (int)((int64_t)(blockIdx.y + 1) * units / kFkSlices);
+  for (int u = (int)((int64_t)blockIdx.y * units / kFkSlices) + tid;
+       u < u_end; u += kFkThreads) {
+    const int item = u / kChunks, t0 = (u - item * kChunks) * kV;
+    const int n = live - t0 < kV ? live - t0 : kV;
+    if (n <= 0) continue;
+    auto row = [&](T* base, int k) { return base + (int64_t)k * B + r0 + t0; };
+    auto pose_of = [&](int b, C (&x)[7]) {
+#pragma unroll
+      for (int c = 0; c < 7; ++c) x[c].load(P(c, b) + t0);
+    };
+    auto xp_of = [&](const C (&x)[7], int e) -> Vec<T> {
+      return {x[0].v[e], x[1].v[e], x[2].v[e]};
+    };
+    auto xq_of = [&](const C (&x)[7], int e) -> Quat<T> {
+      return {x[3].v[e], x[4].v[e], x[5].v[e], x[6].v[e]};
+    };
+    if (item < nb) {
+      // Body pose and inertial frame position.
+      const int b = item;
+      C x[7], xi[3];
+      pose_of(b, x);
+      const Vec<T> ip = vec3(st.fseg(F_BODY_IPOS) + 3 * b);
+#pragma unroll
+      for (int e = 0; e < kV; ++e) {
+        const Vec<T> xp = xp_of(x, e);
+        const Vec<T> rp = rotate(xq_of(x, e), ip);
+        xi[0].v[e] = xp.x + rp.x;
+        xi[1].v[e] = xp.y + rp.y;
+        xi[2].v[e] = xp.z + rp.z;
+      }
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        x[c].put(row(o_xpos, c * nb + b), n);
+        xi[c].put(row(o_xipos, c * nb + b), n);
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) x[3 + c].put(row(o_xquat, c * nb + b), n);
+    } else if (item < 2 * nb) {
+      // body10: the spatial inertia about the world origin.
+      const int b = item - nb;
+      C x[7], p[10];
+      pose_of(b, x);
+      const Vec<T> ip = vec3(st.fseg(F_BODY_IPOS) + 3 * b);
+      const Quat<T> iq = quat4(st.fseg(F_BODY_IQUAT) + 4 * b);
+      const T* in3 = st.fseg(F_BODY_INERTIA) + 3 * b;
+      const T m = st.fseg(F_BODY_MASS)[b];
+#pragma unroll
+      for (int e = 0; e < kV; ++e) {
+        const Vec<T> xp = xp_of(x, e);
+        const Quat<T> xq = xq_of(x, e);
+        const Vec<T> rp = rotate(xq, ip);
+        const T cx = xp.x + rp.x, cy = xp.y + rp.y, cz = xp.z + rp.z;
+        T im[9];
+        quat_to_mat(qmul(xq, iq), im);
+        auto iw = [&](int a, int c) {
+          return in3[0] * im[3 * a] * im[3 * c] +
+                 in3[1] * im[3 * a + 1] * im[3 * c + 1] +
+                 in3[2] * im[3 * a + 2] * im[3 * c + 2];
+        };
+        const T cc = cx * cx + cy * cy + cz * cz;
+        p[0].v[e] = m;
+        p[1].v[e] = m * cx;
+        p[2].v[e] = m * cy;
+        p[3].v[e] = m * cz;
+        p[4].v[e] = iw(0, 0) + m * (cc - cx * cx);
+        p[5].v[e] = iw(0, 1) - m * cx * cy;
+        p[6].v[e] = iw(0, 2) - m * cx * cz;
+        p[7].v[e] = iw(1, 1) + m * (cc - cy * cy);
+        p[8].v[e] = iw(1, 2) - m * cy * cz;
+        p[9].v[e] = iw(2, 2) + m * (cc - cz * cz);
+      }
+#pragma unroll
+      for (int k = 0; k < 10; ++k) p[k].put(row(o_b10, k * nb + b), n);
+    } else if (item < 2 * nb + nv) {
+      // Dof: motion axis about the world origin, rows [ang(3), lin(3)].
+      const int v = item - 2 * nb;
+      const int b = st.iseg(I_DOF_BODY)[v];
+      const int jt = st.iseg(I_DOF_JTYPE)[v];
+      const int a = st.iseg(I_DOF_JOFS)[v];
+      const Vec<T> jax = vec3(st.fseg(F_DOF_JAXIS) + 3 * v);
+      const Vec<T> jps = vec3(st.fseg(F_DOF_JPOS) + 3 * v);
+      C x[7], o[6];
+      pose_of(b, x);
+#pragma unroll
+      for (int e = 0; e < kV; ++e) {
+        const Vec<T> xp = xp_of(x, e);
+        const Quat<T> xq = xq_of(x, e);
+        Vec<T> ang = {T(0), T(0), T(0)}, lin = {T(0), T(0), T(0)};
+        if (jt == kHinge) {
+          ang = rotate(xq, jax);
+          const Vec<T> rj = rotate(xq, jps);
+          lin = cross(ang, Vec<T>{-(xp.x + rj.x), -(xp.y + rj.y),
+                                  -(xp.z + rj.z)});
+        } else if (jt == kSlide) {
+          lin = rotate(xq, jax);
+        } else if (jt == kFree) {
+          if (a < 3) {
+            // Translational dofs: world axes.
+            lin = {T(a == 0), T(a == 1), T(a == 2)};
+          } else {
+            // Rotational dofs: the body frame's columns, about the origin.
+            T mat[9];
+            quat_to_mat(xq, mat);
+            ang = {mat[a - 3], mat[3 + a - 3], mat[6 + a - 3]};
+            lin = cross(ang, Vec<T>{-xp.x, -xp.y, -xp.z});
+          }
+        }
+        o[0].v[e] = ang.x, o[1].v[e] = ang.y, o[2].v[e] = ang.z;
+        o[3].v[e] = lin.x, o[4].v[e] = lin.y, o[5].v[e] = lin.z;
+      }
+#pragma unroll
+      for (int c = 0; c < 6; ++c) o[c].put(row(o_cdof, c * nv + v), n);
+    } else if (item < 2 * nb + nv + ng) {
       // Geom frame.
-      const int g = item - nb - nv;
-      const int b = tab.iseg(I_GEOM_BODY)[g];
-      const Vec<T> xp = {P(0, b, t), P(1, b, t), P(2, b, t)};
-      const Quat<T> xq = {P(3, b, t), P(4, b, t), P(5, b, t), P(6, b, t)};
-      const Vec<T> rp = rotate(xq, vec3(tab.fseg(F_GEOM_POS) + 3 * g));
-      gpos[((int64_t)0 * ng + g) * B + r] = xp.x + rp.x;
-      gpos[((int64_t)1 * ng + g) * B + r] = xp.y + rp.y;
-      gpos[((int64_t)2 * ng + g) * B + r] = xp.z + rp.z;
-      T mat[9];
-      quat_to_mat(qmul(xq, quat4(tab.fseg(F_GEOM_QUAT) + 4 * g)), mat);
-      for (int k = 0; k < 9; ++k) gmat[((int64_t)k * ng + g) * B + r] = mat[k];
+      const int g = item - 2 * nb - nv;
+      const int b = st.iseg(I_GEOM_BODY)[g];
+      const Vec<T> gp = vec3(st.fseg(F_GEOM_POS) + 3 * g);
+      const Quat<T> gq = quat4(st.fseg(F_GEOM_QUAT) + 4 * g);
+      C x[7], o[12];
+      pose_of(b, x);
+#pragma unroll
+      for (int e = 0; e < kV; ++e) {
+        const Vec<T> xp = xp_of(x, e);
+        const Quat<T> xq = xq_of(x, e);
+        const Vec<T> rp = rotate(xq, gp);
+        o[0].v[e] = xp.x + rp.x;
+        o[1].v[e] = xp.y + rp.y;
+        o[2].v[e] = xp.z + rp.z;
+        T mat[9];
+        quat_to_mat(qmul(xq, gq), mat);
+#pragma unroll
+        for (int k = 0; k < 9; ++k) o[3 + k].v[e] = mat[k];
+      }
+#pragma unroll
+      for (int c = 0; c < 3; ++c) o[c].put(row(o_gpos, c * ng + g), n);
+#pragma unroll
+      for (int k = 0; k < 9; ++k) o[3 + k].put(row(o_gmat, k * ng + g), n);
     } else {
       // Tendon: length through each dof's qpos address, velocity.
-      const int k = item - nb - nv - ng;
-      const T* qsel = tab.fseg(F_TEN_QSEL) + (size_t)k * d.nq;
-      const T* mom = tab.fseg(F_TEN_MOMENT) + (size_t)k * nv;
-      T len = T(0), vel = T(0);
-      for (int j = 0; j < d.nq; ++j) len += qsel[j] * qpos[(int64_t)j * B + r];
-      for (int j = 0; j < nv; ++j) vel += mom[j] * qvel[(int64_t)j * B + r];
-      ten_length[(int64_t)k * B + r] = len;
-      ten_velocity[(int64_t)k * B + r] = vel;
+      const int k = item - 2 * nb - nv - ng;
+      const T* qsel = st.fseg(F_TEN_QSEL) + (size_t)k * nq;
+      const T* mom = st.fseg(F_TEN_MOMENT) + (size_t)k * nv;
+      C len, vel, x;
+#pragma unroll
+      for (int e = 0; e < kV; ++e) len.v[e] = vel.v[e] = T(0);
+      for (int j = 0; j < nq; ++j) {
+        x.load(in(j) + t0);
+#pragma unroll
+        for (int e = 0; e < kV; ++e) len.v[e] += qsel[j] * x.v[e];
+      }
+      for (int j = 0; j < nv; ++j) {
+        x.load(in(nq + j) + t0);
+#pragma unroll
+        for (int e = 0; e < kV; ++e) vel.v[e] += mom[j] * x.v[e];
+      }
+      len.put(row(o_tlen, k), n);
+      vel.put(row(o_tvel, k), n);
     }
   }
 }
@@ -411,99 +703,6 @@ __host__ __device__ inline size_t dyn_smem_bytes(int nbody, int nv,
          4 * ints;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// Copies of 4, 8 or 16 bytes from global to shared memory with no register
-// round trip (cp.async); cp_async_wait() before the barrier that publishes
-// the stage.
-template <int kBytes>
-__device__ __forceinline__ void cp_async(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(__cvta_generic_to_global(src)), "n"(kBytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return ((uintptr_t)p & 15u) == 0;
-}
-
-// A tile row in registers: the kDynTile rollouts' values of one row,
-// moved between shared memory and registers as 16-byte vectors (float4 or
-// double2).
-template <typename T>
-struct Vec16;
-template <>
-struct Vec16<float> {
-  using type = float4;
-};
-template <>
-struct Vec16<double> {
-  using type = double2;
-};
-
-template <typename T>
-struct TileRow {
-  static constexpr int kPer16 = 16 / sizeof(T);
-  using V = typename Vec16<T>::type;
-  T v[kDynTile];
-
-  __device__ __forceinline__ void load(const T* s) {  // shared, aligned
-#pragma unroll
-    for (int i = 0; i < kDynTile / kPer16; ++i) {
-      const V x = reinterpret_cast<const V*>(s)[i];
-      if constexpr (kPer16 == 4) {
-        v[4 * i] = x.x, v[4 * i + 1] = x.y, v[4 * i + 2] = x.z,
-                  v[4 * i + 3] = x.w;
-      } else {
-        v[2 * i] = x.x, v[2 * i + 1] = x.y;
-      }
-    }
-  }
-  __device__ __forceinline__ void store(T* s) const {  // 16-byte aligned
-#pragma unroll
-    for (int i = 0; i < kDynTile / kPer16; ++i) {
-      V x;
-      if constexpr (kPer16 == 4) {
-        x.x = v[4 * i], x.y = v[4 * i + 1], x.z = v[4 * i + 2],
-        x.w = v[4 * i + 3];
-      } else {
-        x.x = v[2 * i], x.y = v[2 * i + 1];
-      }
-      reinterpret_cast<V*>(s)[i] = x;
-    }
-  }
-  // The tile's live rollouts to a global output row (dst is rollout r0's
-  // place): vector stores where the row is whole and aligned.  (Every index
-  // into v is a constant, or v would leave the registers for local memory.)
-  __device__ __forceinline__ void put(T* dst, int live) const {
-    if (live == kDynTile && aligned16(dst)) {
-      store(dst);
-    } else {
-#pragma unroll
-      for (int t = 0; t < kDynTile; ++t)
-        if (t < live) dst[t] = v[t];
-    }
-  }
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int t = 0; t < kDynTile; ++t) v[t] = T(0);
-  }
-  __device__ __forceinline__ void fma(const TileRow& x, const TileRow& y) {
-#pragma unroll
-    for (int t = 0; t < kDynTile; ++t) v[t] += x.v[t] * y.v[t];
-  }
-  __device__ __forceinline__ void add(const TileRow& x) {
-#pragma unroll
-    for (int t = 0; t < kDynTile; ++t) v[t] += x.v[t];
-  }
-};
-
 // Runs body(k, b, t) over the rows k * n + b < rows of one phase, kLanes
 // threads per row: thread tid takes lane t = tid % kLanes of every
 // (blockDim.x / kLanes)-th row from tid / kLanes, with (k, b) stepped, not
@@ -561,7 +760,7 @@ __global__ void __launch_bounds__(kDynMaxThreads)
                     T* __restrict__ qfrc_bias, int64_t B) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int TT = kDynTile;
-  using Row = TileRow<T>;
+  using Row = TileRow<T, kDynTile>;
   constexpr int kPer16 = Row::kPer16, kChunks = TT / kPer16;
   const int nb = d.nbody, nv = d.nv;
   T* s_cdof = reinterpret_cast<T*>(smem_raw);
@@ -745,21 +944,17 @@ int set_smem(K kernel, size_t smem) {
 template <typename T>
 int launch_fk(const void* ti, const void* tf, Dims d, const void* qpos,
               const void* qvel, const void* mpos, const void* mquat,
-              void* xpos, void* xquat, void* cdof, void* gpos, void* gmat,
-              void* xipos, void* body10, void* ten_length,
-              void* ten_velocity, int64_t B, int tile, int threads,
-              void* stream) {
+              void* out, int64_t B, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
-  const size_t smem = (size_t)7 * d.nbody * tile * sizeof(T);
+  const size_t smem = fk_smem_bytes(d, sizeof(T));
   auto kernel = tree_fk_kernel<T>;
   int err = set_smem(kernel, smem);
   if (err != (int)cudaSuccess) return err;
-  const int64_t blocks = (B + tile - 1) / tile;
-  kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
+  constexpr int kTile = kFkTile<T>;
+  const dim3 grid((unsigned)((B + kTile - 1) / kTile), (unsigned)kFkSlices);
+  kernel<<<grid, kFkThreads, smem, (cudaStream_t)stream>>>(
       Tables<T>{(const int*)ti, (const T*)tf}, d, (const T*)qpos,
-      (const T*)mpos, (const T*)mquat, (const T*)qvel, (T*)xpos, (T*)xquat,
-      (T*)cdof, (T*)gpos, (T*)gmat, (T*)xipos, (T*)body10, (T*)ten_length,
-      (T*)ten_velocity, B, tile);
+      (const T*)qvel, (const T*)mpos, (const T*)mquat, (T*)out, B);
   return (int)cudaGetLastError();
 }
 
@@ -787,36 +982,33 @@ int launch_dyn(const void* ti, const void* tf, Dims d, const void* cdof,
 extern "C" {
 
 // Number of int (which == 0) or float (which == 1) table segments; K6's
-// rollouts per CTA (which == 2).
+// rollouts per CTA (which == 2); the bytes of K5's tile of rollouts (3).
 int dex_tree_layout(int which) {
-  return which == 0 ? (int)N_INT_SEGS
+  return which == 0   ? (int)N_INT_SEGS
          : which == 1 ? (int)N_FLOAT_SEGS
-                      : kDynTile;
+         : which == 2 ? kDynTile
+                      : kFkLine;
 }
 
 // K5.  elem_bytes: 4 or 8.  ti/tf: the packed tables.  Inputs qpos (nq, B),
-// qvel (nv, B), mpos (3 nmocap, B), mquat (4 nmocap, B); outputs xpos
-// (3 nbody, B), xquat (4 nbody, B), cdof (6 nv, B), gpos (3 ngeom, B), gmat
-// (9 ngeom, B), xipos (3 nbody, B), body10 (10 nbody, B), ten_length and
-// ten_velocity (ntendon, B).  tile rollouts per CTA of `threads` threads
-// (threads >= tile).  Returns the cudaError_t of the launch.
+// qvel (nv, B), mpos (3 nmocap, B), mquat (4 nmocap, B); output one
+// (20 nbody + 6 nv + 12 ngeom + 2 ntendon, B) buffer holding, row after
+// row, xpos (3 nbody), xquat (4 nbody), cdof (6 nv), gpos (3 ngeom), gmat
+// (9 ngeom), xipos (3 nbody), body10 (10 nbody), ten_length and
+// ten_velocity (ntendon each).  K5's CTA shape is fixed (kFkTile,
+// kFkSlices, kFkThreads); shared memory fk_smem_bytes.  Returns the
+// cudaError_t of the launch.
 int dex_tree_fk(int elem_bytes, const void* ti, const void* tf, int nbody,
                 int nv, int nq, int ngeom, int ntendon, int nmocap,
                 const void* qpos, const void* qvel, const void* mpos,
-                const void* mquat, void* xpos, void* xquat, void* cdof,
-                void* gpos, void* gmat, void* xipos, void* body10,
-                void* ten_length, void* ten_velocity, int64_t B, int tile,
-                int threads, void* stream) {
+                const void* mquat, void* out, int64_t B, void* stream) {
   const Dims d{nbody, nv, nq, ngeom, ntendon, nmocap};
-  if (threads < tile) return (int)cudaErrorInvalidValue;
   if (elem_bytes == 4)
-    return launch_fk<float>(ti, tf, d, qpos, qvel, mpos, mquat, xpos, xquat,
-                            cdof, gpos, gmat, xipos, body10, ten_length,
-                            ten_velocity, B, tile, threads, stream);
+    return launch_fk<float>(ti, tf, d, qpos, qvel, mpos, mquat, out, B,
+                            stream);
   if (elem_bytes == 8)
-    return launch_fk<double>(ti, tf, d, qpos, qvel, mpos, mquat, xpos, xquat,
-                             cdof, gpos, gmat, xipos, body10, ten_length,
-                             ten_velocity, B, tile, threads, stream);
+    return launch_fk<double>(ti, tf, d, qpos, qvel, mpos, mquat, out, B,
+                             stream);
   return (int)cudaErrorInvalidValue;
 }
 

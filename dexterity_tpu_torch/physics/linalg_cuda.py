@@ -25,20 +25,20 @@ factor on both devices.  What the two packages agree on is the pair's
 solution.
 
 Bound on the card: at the planner's shapes (B = 1024, n = 30, float32) K1
-moves 2·B·n²·4 bytes (~7.4 MB, ~2.2 us at 3.35 TB/s), K4 the same; K2 and
-K3 read about half that.  Their ~n³/3 FMAs per matrix are far below the
-FP32 rate, so the bound is memory, but the kernels are latency-bound along
-the n-step serial pivot chain.  Two designs, one warp per matrix in both
+moves 2·B·n²·4 bytes (~7.4 MB, ~2.2 us at 3.35 TB/s), K4 the same less
+the two vectors; K2 and K3 read about half that.  Their ~n³/3 FMAs per
+matrix are far below the FP32 rate, so the bound is memory, but the
+kernels are latency-bound along the n-step serial pivot chain.  Two designs, one warp per matrix in both
 (see the sources' headers):
 
-  'registers'  `csrc/cholesky_regs.cu`: K1, K2 and K3 at n <= 32, a row
-               per lane in registers, the pivot loop unrolled with no
-               branch; the main path (n = 30, float32) and the environment
-               step (n = 30) run it.
+  'registers'  `csrc/cholesky_regs.cu`: K1-K4 at n <= 32, a row per
+               lane in registers, the pivot loop unrolled with no branch;
+               the main path (n = 30, float32), the environment step
+               (n = 30) and `cholesky_factor` on their Hessians run it.
   'shared'     `csrc/cholesky.cu`: the matrix in shared memory, one
-               __syncwarp() per pivot: K4, and K1-K3 beyond n = 32.
+               __syncwarp() per pivot: K1-K4 beyond n = 32.
 
-`_design(n, dtype)` picks K1's, K2's and K3's from the shape and type
+`_design(n, dtype)` picks every kernel's design from the shape and type
 alone; no switch overrides it on the public wrappers.
 `_launch(..., design=...)` runs either design at the same inputs, so a card
 run can time the shared design beside the register one.
@@ -62,9 +62,8 @@ _MODE_FACTOR = 3
 
 # Largest n of the register design: one row per lane.  (Its code with two
 # rows per lane, n <= 64, spills K1 in both types; see cholesky_regs.cu.)
+# Both designs have every mode.
 _REG_MAX_N = 32
-# The modes the register design has: K3, K1, K2.
-_REG_MODES = (_MODE_SOLVE, _MODE_SOLVE_FACTOR, _MODE_RESOLVE)
 
 # Shared memory one block may use on Hopper (227 KB).
 _MAX_SMEM = 232448
@@ -104,8 +103,7 @@ def build() -> dict:
 
 
 def _design(n: int, dtype: torch.dtype) -> str:
-  """The design K1, K2 and K3 run at (n, dtype): 'registers' or
-  'shared'."""
+  """The design K1-K4 run at (n, dtype): 'registers' or 'shared'."""
   real = dtype in (torch.float32, torch.float64)
   return 'registers' if real and 1 <= n <= _REG_MAX_N else 'shared'
 
@@ -124,8 +122,7 @@ def _launch(mode: int, name: str, a: torch.Tensor, g=None,
             want_factor: bool = False, design: str | None = None):
   """Checks the operands and launches one kernel on the current stream.
   Returns x, (x, factor) or, with no rhs, the factor alone.  `design`
-  None takes `_design` for K1-K3 and 'shared' for K4; the public wrappers
-  never pass it."""
+  None takes `_design`; the public wrappers never pass it."""
   if a.dtype not in (torch.float32, torch.float64):
     raise TypeError(f'{name}: dtype {a.dtype} is not float32/float64')
   if a.dim() < 2 or a.shape[-2] != a.shape[-1]:
@@ -138,9 +135,8 @@ def _launch(mode: int, name: str, a: torch.Tensor, g=None,
       raise ValueError(f'{name}: shapes {tuple(a.shape)} / '
                        f'{tuple(g.shape)}')
   if design is None:
-    design = _design(n, a.dtype) if mode in _REG_MODES else 'shared'
-  elif design == 'registers' and (mode not in _REG_MODES or
-                                  not 1 <= n <= _REG_MAX_N):
+    design = _design(n, a.dtype)
+  elif design == 'registers' and not 1 <= n <= _REG_MAX_N:
     raise ValueError(f'{name}: no register design at n={n}, {a.dtype}')
   elem = a.element_size()
   per_warp = _warp_smem_bytes(n, elem, design)

@@ -35,10 +35,14 @@ Bound on the card at the reorient planning model (nbody 33, nv 30, nq 31,
 ngeom 236, ntendon 4, nmocap 1), B = 1024, float32: K5 moves 68 input and
 3,680 output rows (15.35 MB, 4.6 us at 3.35 TB/s), K6 540 input and 930
 output rows (6.02 MB, 1.8 us).  Both do far less arithmetic than the FP32
-rate allows.  K5 is latency-bound along its serial per-rollout body walk;
-K6 computes what `_kernel_dyn` computes, every tree recursion a gather over
-the static tables below (subtrees, ancestor dofs, qm entry kinds), in six
-phases shared by a CTA's threads (see the source's header).
+rate allows.  K5 computes every body's local pose at once and composes the
+world poses level by level over a static table of the bodies by tree depth
+(10 levels for the hand), then spreads the outputs over a CTA's threads in
+16-byte chunks of rollouts: a CTA's tile is one 128-byte line of each
+output row, its items a quarter of the rows.  K6 computes what
+`_kernel_dyn` computes, every tree recursion a gather over the static
+tables below (subtrees, ancestor dofs, qm entry kinds), in six phases
+shared by a CTA's threads (see the source's header).
 """
 
 from __future__ import annotations
@@ -56,15 +60,17 @@ from dexterity_tpu_torch.physics import cuda_build, kinematics, smooth
 launches = {'tree_sweep_fk': 0, 'tree_sweep_dyn': 0}
 
 # Segment order of the packed tables; csrc/tree_sweep.cu's IntSeg and
-# FloatSeg enums list the same names in the same order.  K6's gathers read
-# two CSR lists (`*_ptr` then the entries), each body's subtree and each
-# body's ancestor-or-self dofs, and each qm entry's kind (_QM_KINDS).  K6
-# copies its int segments, the last five and dof_body, as one block, and
-# dof_armature with dof_keep, into shared memory.
+# FloatSeg enums list the same names in the same order.  K5 composes the
+# world poses level by level over a CSR list of the bodies by tree depth
+# (`level_ptr`, then `level_body`).  K6's gathers read two CSR lists, each
+# body's subtree and each body's ancestor-or-self dofs, and each qm entry's
+# kind (_QM_KINDS).  K5 copies the int buffer from its header through
+# dof_body into shared memory, K6 its own int segments (dof_body and the
+# last five) as one block; each copies the float buffer's segments it reads.
 _INT_SEGS = ('body_parent', 'body_jtype', 'body_qadr', 'body_mocap',
-             'dof_jtype', 'dof_jofs', 'geom_body', 'dof_body',
-             'body_sub_ptr', 'body_sub', 'body_ancdof_ptr', 'body_ancdof',
-             'qm_kind')
+             'dof_jtype', 'dof_jofs', 'geom_body', 'level_ptr', 'level_body',
+             'dof_body', 'body_sub_ptr', 'body_sub', 'body_ancdof_ptr',
+             'body_ancdof', 'qm_kind')
 _FLOAT_SEGS = ('body_pos', 'body_quat', 'body_jaxis', 'body_jpos',
                'body_ipos', 'body_iquat', 'body_mass', 'body_inertia',
                'dof_jaxis', 'dof_jpos', 'dof_armature', 'dof_keep',
@@ -76,11 +82,11 @@ _FLOAT_SEGS = ('body_pos', 'body_quat', 'body_jaxis', 'body_jpos',
 # the diagonal (the kernel's kQmZero .. kQmDiag).
 _QM_KINDS = ('zero', 'upper', 'mirrored', 'diagonal')
 
-# Rollouts and threads per CTA: K5's, and K6's (its tile is the kernel's
-# kDynTile, checked at binding).  Shared memory one block may use on
-# Hopper: 227 KB.
-_FK_TILE = 8
-_FK_THREADS = 128
+# Bytes of K5's tile of rollouts: one 128-byte line of each row, 32
+# float32 or 16 float64 rollouts (the kernel's kFkLine).  K6's rollouts
+# and threads per CTA (its tile is the kernel's kDynTile).  Both tiles are
+# checked at binding.  Shared memory one block may use on Hopper: 227 KB.
+_FK_LINE = 128
 _DYN_TILE = 8
 _DYN_THREADS = 512
 _MAX_SMEM = 232448
@@ -110,16 +116,16 @@ def build() -> ctypes.CDLL:
     lib = cuda_build.library('tree_sweep')
     lib.dex_tree_layout.restype = ctypes.c_int
     lib.dex_tree_layout.argtypes = [ctypes.c_int]
-    if tuple(lib.dex_tree_layout(k) for k in range(3)) != (
-        len(_INT_SEGS), len(_FLOAT_SEGS), _DYN_TILE):
+    if tuple(lib.dex_tree_layout(k) for k in range(4)) != (
+        len(_INT_SEGS), len(_FLOAT_SEGS), _DYN_TILE, _FK_LINE):
       raise RuntimeError('tree_sweep.cu and tree_cuda.py disagree on the '
-                         'table layout or K6\'s tile')
+                         'table layout or the kernels\' tiles')
     dims = [ctypes.c_int] * 6
     lib.dex_tree_fk.restype = ctypes.c_int
     lib.dex_tree_fk.argtypes = (
         [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p] + dims
-        + [ctypes.c_void_p] * 13
-        + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        + [ctypes.c_void_p] * 5
+        + [ctypes.c_int64, ctypes.c_void_p])
     lib.dex_tree_dyn.restype = ctypes.c_int
     lib.dex_tree_dyn.argtypes = (
         [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p] + dims
@@ -138,6 +144,16 @@ def _csr(mask: np.ndarray):
   """(row pointers, column indices) of the nonzeros of a 0/1 mask."""
   rows, cols = np.nonzero(mask)
   return np.searchsorted(rows, np.arange(mask.shape[0] + 1)), cols
+
+
+def _levels(model: Model):
+  """The bodies by tree depth as a CSR list: (level pointers, bodies),
+  level 0 the world alone, each level's bodies in index order."""
+  depth = np.zeros(model.nbody, np.int64)
+  for b in range(1, model.nbody):
+    depth[b] = depth[model.body_parentid[b]] + 1
+  order = np.argsort(depth, kind='stable')
+  return np.searchsorted(depth[order], np.arange(depth.max() + 2)), order
 
 
 def _qm_kind(model: Model) -> np.ndarray:
@@ -169,6 +185,7 @@ def tables_np(model: Model):
   for j in range(model.njnt):
     if model.jnt_type[j] == int(JointType.FREE):
       trans_free[model.jnt_dofadr[j]:model.jnt_dofadr[j] + 3] = True
+  level_ptr, level_body = _levels(model)
   sub_ptr, sub = _csr(smooth._subtree_mask_np(model))
   anc_ptr, anc = _csr(kinematics.ancestor_mask(model))
   tm = host(model.tendon_moment).reshape(model.ntendon, nv)
@@ -184,7 +201,8 @@ def tables_np(model: Model):
       body_mocap=model.body_mocapid, dof_body=model.dof_bodyid,
       dof_jtype=[model.jnt_type[j] for j in dof_jnt],
       dof_jofs=[v - model.jnt_dofadr[dof_jnt[v]] for v in range(nv)],
-      geom_body=model.geom_bodyid, body_sub_ptr=sub_ptr, body_sub=sub,
+      geom_body=model.geom_bodyid, level_ptr=level_ptr,
+      level_body=level_body, body_sub_ptr=sub_ptr, body_sub=sub,
       body_ancdof_ptr=anc_ptr, body_ancdof=anc, qm_kind=_qm_kind(model))
   floats = dict(
       body_pos=host(model.body_pos), body_quat=host(model.body_quat),
@@ -293,18 +311,30 @@ def tree_sweep_plain(model: Model, qpos, qvel, mocap_pos, mocap_quat):
 # ---------------------------------------------------------------------------
 
 
+def _fk_smem(model: Model, elem: int) -> int:
+  """K5's shared memory in bytes, mirroring csrc/tree_sweep.cu's
+  fk_smem_bytes: 7 pose rows per body and the input rows, a tile's values
+  (_FK_LINE bytes) each; the float tables; the int tables through dof_body
+  (each table rounded up to 16 bytes)."""
+  nb, nv, ng, nt = model.nbody, model.nv, model.ngeom, model.ntendon
+  r16 = lambda x: (x + 15) // 16 * 16
+  rows = 7 * nb + model.nq + nv + 7 * model.nmocap
+  floats = 24 * nb + 8 * nv + 7 * ng + 3 + nt * (model.nq + nv)
+  ints = len(_INT_SEGS) + len(_FLOAT_SEGS) + 6 * nb + 3 * nv + ng + 1
+  return rows * _FK_LINE + r16(floats * elem) + r16(4 * ints)
+
+
 def _check_fits(model: Model, x: torch.Tensor) -> None:
   """Raises where the kernels do not take x's dtype or the model does not
-  fit in their shared memory (K5: 7 rows per body per rollout of a tile,
-  K6: csrc/tree_sweep.cu's dyn_smem_bytes, mirrored here)."""
+  fit in their shared memory (K5: `_fk_smem`; K6: csrc/tree_sweep.cu's
+  dyn_smem_bytes, mirrored here)."""
   if x.dtype not in (torch.float32, torch.float64):
     raise TypeError(f'tree sweep: dtype {x.dtype} is not float32/float64')
   elem = x.element_size()
   nb, nv = model.nbody, model.nv
-  fk = 7 * nb * _FK_TILE * elem
   ints = nv + 2 * (nb + 1) + nb * nb + nb * nv + nv * nv
   dyn = ((19 * nv + 32 * nb) * _DYN_TILE + 2 * nv + 3) * elem + 4 * ints
-  if max(fk, dyn) > _MAX_SMEM:
+  if max(_fk_smem(model, elem), dyn) > _MAX_SMEM:
     raise ValueError(f'tree sweep: nbody={model.nbody}, nv={model.nv} '
                      'exceed the shared memory')
 
@@ -320,36 +350,43 @@ def _route(model: Model, x: torch.Tensor) -> bool:
   return x.device.type == 'cuda'
 
 
+# K5's outputs in the order of its one (rows, B) buffer.
+_FK_KEYS = ('xpos', 'xquat', 'cdof', 'gpos', 'gmat', 'xipos', 'body10',
+            'ten_length', 'ten_velocity')
+
+
+def _fk_rows(model: Model):
+  nb, nv, ng, nt = model.nbody, model.nv, model.ngeom, model.ntendon
+  return (3 * nb, 4 * nb, 6 * nv, 3 * ng, 9 * ng, 3 * nb, 10 * nb, nt, nt)
+
+
 def tree_fk(model: Model, qpos, qvel, mocap_pos, mocap_quat):
   """K5: fk_plain's outputs (body10 included); the kernel for CUDA
-  tensors, fk_plain for CPU tensors."""
+  tensors, fk_plain for CPU tensors.  On the card the outputs are row
+  views of one (rows, B) buffer, so any one of them kept alive keeps the
+  whole buffer (15 MB at the reorient planning model, B = 1024, float32)
+  alive: clone an output to keep it alone."""
   _check_inputs(model, qpos, qvel, mocap_pos, mocap_quat)
   if not _route(model, qpos):
     return fk_plain(model, qpos, qvel, mocap_pos, mocap_quat)
   _check_fits(model, qpos)
-  nb, nv, nq, ng = model.nbody, model.nv, model.nq, model.ngeom
-  nt, nm = model.ntendon, model.nmocap
   lib = build()
-  dev, dtype = qpos.device, qpos.dtype
-  ti, tf = _device_tables(model, dtype, dev)
+  ti, tf = _device_tables(model, qpos.dtype, qpos.device)
   qpos, qvel, mocap_pos, mocap_quat = (
       x.contiguous() for x in (qpos, qvel, mocap_pos, mocap_quat))
+  rows = _fk_rows(model)
   b = qpos.shape[-1]
-  names = ('xpos', 'xquat', 'cdof', 'gpos', 'gmat', 'xipos', 'body10',
-           'ten_length', 'ten_velocity')
-  rows = (3 * nb, 4 * nb, 6 * nv, 3 * ng, 9 * ng, 3 * nb, 10 * nb, nt, nt)
-  out = {k: torch.empty((r, b), dtype=dtype, device=dev)
-         for k, r in zip(names, rows)}
+  buf = qpos.new_empty((sum(rows), b))
   err = cuda_build.launch(
-      lib.dex_tree_fk, dev, qpos.element_size(), ti.data_ptr(),
-      tf.data_ptr(), nb, nv, nq, ng, nt, nm, qpos.data_ptr(),
-      qvel.data_ptr(), mocap_pos.data_ptr(), mocap_quat.data_ptr(),
-      *(out[k].data_ptr() for k in names), b, _FK_TILE, _FK_THREADS)
+      lib.dex_tree_fk, qpos.device, qpos.element_size(), ti.data_ptr(),
+      tf.data_ptr(), model.nbody, model.nv, model.nq, model.ngeom,
+      model.ntendon, model.nmocap, qpos.data_ptr(), qvel.data_ptr(),
+      mocap_pos.data_ptr(), mocap_quat.data_ptr(), buf.data_ptr(), b)
   if err != 0:
     raise RuntimeError(f'tree_sweep_fk: kernel launch failed (cudaError '
                        f'{err})')
   launches['tree_sweep_fk'] += 1
-  return out
+  return dict(zip(_FK_KEYS, buf.split_with_sizes(rows)))
 
 
 def tree_dyn(model: Model, cdof, body10, qvel):

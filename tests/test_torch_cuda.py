@@ -159,7 +159,7 @@ def test_register_and_shared_designs_agree(dtype):
                                      (32, torch.float64),
                                      (33, torch.float64)])
 def test_design_picks_the_kernel_that_runs(n, dtype):
-  """The kernel the card runs for K1, K2 and K3 is the one `_design`
+  """The kernel the card runs for K1, K2, K3 and K4 is the one `_design`
   names."""
   _cuda()
   from torch.profiler import ProfilerActivity, profile
@@ -175,11 +175,12 @@ def test_design_picks_the_kernel_that_runs(n, dtype):
       _, fac = LC.cholesky_solve_factor(hc, gc)
       LC.cholesky_resolve_const(fac, gc)
       LC.cholesky_solve(hc, gc)
+      LC.cholesky_factor(hc)
       torch.cuda.synchronize()
     names = [e.key for e in prof.key_averages() if 'cholesky' in e.key]
-    if len(names) == 3:
+    if len(names) == 4:
       break
-  assert len(names) == 3, names
+  assert len(names) == 4, names
   for name in names:
     assert ('cholesky_regs' in name) == (want == 'registers'), name
 
@@ -216,6 +217,42 @@ def test_k3_register_and_shared_designs_agree(dtype):
   x = {d: LC._launch(LC._MODE_SOLVE, 'cholesky_solve', hc, gc, design=d)
        for d in ('registers', 'shared')}
   torch.testing.assert_close(x['registers'], x['shared'], **_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [1, 17, 30, 31, 32, 33, 62])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_k4_matches_plain_at_design_boundaries(dtype, n):
+  """K4 (cholesky_factor), in the design `_design` picks, against the
+  plain factor on the lower triangle, on (3, 7) leading batch dims (the
+  last block of 4 warps is not full)."""
+  _cuda()
+  h, _ = _spd(17, 21, n)
+  hc = torch.as_tensor(h, dtype=dtype, device='cuda').reshape(3, 7, n, n)
+  LC.reset_launches()
+  fac = LC.cholesky_factor(hc)
+  assert fac.shape == (3, 7, n, n)
+  low = torch.tril(torch.ones(n, n, dtype=torch.bool, device='cuda'))
+  torch.testing.assert_close(fac[..., low], LC.factor_plain(hc)[..., low],
+                             **_TOL[dtype])
+  torch.cuda.synchronize()
+  assert LC.launches['cholesky_factor'] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_k4_register_and_shared_designs_agree(dtype):
+  """At the entry point's shape K4's register design and the
+  shared-memory design (the in-run yardstick) give the same factor."""
+  _cuda()
+  n = 30
+  h, _ = _spd(18, 1024, n)
+  hc = torch.as_tensor(h, dtype=dtype, device='cuda')
+  low = torch.tril(torch.ones(n, n, dtype=torch.bool, device='cuda'))
+  fac = {d: LC._launch(LC._MODE_FACTOR, 'cholesky_factor', hc,
+                       want_factor=True, design=d)[:, low]
+         for d in ('registers', 'shared')}
+  torch.testing.assert_close(fac['registers'], fac['shared'], **_TOL[dtype])
 
 
 @pytest.mark.cuda
@@ -313,6 +350,33 @@ def test_tree_dyn_matches_plain_on_card(dtype, b):
   rel = 1e-4 if dtype == torch.float32 else 1e-10
   for key in ('qm', 'qfrc_bias'):
     assert out[key].shape == ref[key].shape
+    scale = max(ref[key].abs().max().item(), 1.0)
+    err = (out[key] - ref[key]).abs().max().item()
+    assert err <= rel * scale, (key, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b', [1, 7, 37, 1000, 1024])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_tree_fk_matches_plain_on_card(dtype, b):
+  """K5 against fk_plain on the same card inputs, relative to each
+  output's max-abs: 1e-4 in float32, 1e-10 in float64; batches whose rows
+  are not whole 16-byte chunks (1, 7, 37) take the element stores, and
+  every batch but 1024 ends in a partial tile."""
+  _cuda()
+  task = manipulation.build_task('reorient', 'state_dense')
+  model = task.compile(device='cuda', dtype=dtype)
+  ins = _tree_inputs(model, b, 19)
+  ref = tree_cuda.fk_plain(model, *ins)
+  rel = 1e-4 if dtype == torch.float32 else 1e-10
+  tree_cuda.reset_launches()
+  out = tree_cuda.tree_fk(model, *ins)
+  torch.cuda.synchronize()
+  assert tree_cuda.launches == {'tree_sweep_fk': 1, 'tree_sweep_dyn': 0}
+  assert sorted(out) == sorted(ref)
+  for key in ref:
+    assert out[key].shape == ref[key].shape, key
+    assert out[key].is_contiguous(), key
     scale = max(ref[key].abs().max().item(), 1.0)
     err = (out[key] - ref[key]).abs().max().item()
     assert err <= rel * scale, (key, err, scale)

@@ -186,11 +186,13 @@ def test_design_rule(n, dtype, want):
 @pytest.mark.parametrize('mode,name', [
     (LC._MODE_SOLVE_FACTOR, 'cholesky_solve_factor'),
     (LC._MODE_RESOLVE, 'cholesky_resolve_const'),
-    (LC._MODE_SOLVE, 'cholesky_solve')])
+    (LC._MODE_SOLVE, 'cholesky_solve'),
+    (LC._MODE_FACTOR, 'cholesky_factor')])
 def test_launch_checks_come_before_the_card(monkeypatch, mode, name):
   """The wrapper's checks raise before any build or card call: float16,
   an n whose matrix does not fit in shared memory, and a register design
-  asked for where it does not exist (meta tensors, no card)."""
+  asked for where it does not exist (meta tensors, no card).  K4 takes no
+  rhs."""
   def no_build(*_):
     raise AssertionError('the checks should have raised before a build')
   monkeypatch.setattr(LC.cuda_build, 'build_all', no_build)
@@ -199,35 +201,45 @@ def test_launch_checks_come_before_the_card(monkeypatch, mode, name):
   def meta(*shape, dtype=torch.float32):
     return torch.empty(*shape, dtype=dtype, device='meta')
 
+  def rhs(*shape, dtype=torch.float32):
+    return None if mode == LC._MODE_FACTOR else meta(*shape, dtype=dtype)
+
   with pytest.raises(TypeError):
     LC._launch(mode, name, meta(2, 4, 4, dtype=torch.float16),
-               meta(2, 4, dtype=torch.float16))
+               rhs(2, 4, dtype=torch.float16))
   with pytest.raises(ValueError, match='shared memory'):
-    LC._launch(mode, name, meta(1, 300, 300), meta(1, 300))
+    LC._launch(mode, name, meta(1, 300, 300), rhs(1, 300))
   with pytest.raises(ValueError, match='register design'):
-    LC._launch(mode, name, meta(1, 80, 80), meta(1, 80), design='registers')
+    LC._launch(mode, name, meta(1, 80, 80), rhs(1, 80), design='registers')
   with pytest.raises(ValueError):
-    LC._launch(mode, name, meta(2, 4, 5), meta(2, 4))
+    LC._launch(mode, name, meta(2, 4, 5), rhs(2, 4))
 
 
+@pytest.mark.parametrize('mode,name', [
+    (LC._MODE_SOLVE, 'cholesky_solve'), (LC._MODE_FACTOR, 'cholesky_factor')])
 @pytest.mark.parametrize('n,dtype,want', [
     (1, torch.float32, 'registers'), (30, torch.float32, 'registers'),
     (32, torch.float64, 'registers'), (33, torch.float32, 'shared'),
     (62, torch.float64, 'shared')])
-def test_launch_picks_k3_design(monkeypatch, n, dtype, want):
-  """`_launch` sends K3 (cholesky_solve) to the register design at n <= 32
-  and to the shared-memory one above, as `_design` says (meta tensors, a
-  stub C entry per design, no card)."""
+def test_launch_picks_k3_design(monkeypatch, n, dtype, want, mode, name):
+  """`_launch` sends K3 (cholesky_solve) and K4 (cholesky_factor, no rhs)
+  to the register design at n <= 32 and to the shared-memory one above,
+  as `_design` says (meta tensors, a stub C entry per design, no card)."""
   called = []
   fns = {d: (lambda *args, d=d: called.append((d, args[0])) or 0)
          for d in ('registers', 'shared')}
   monkeypatch.setattr(LC, '_fns', fns)
   monkeypatch.setattr(LC.cuda_build, 'launch',
                       lambda fn, dev, *args: fn(*args))
-  monkeypatch.setitem(LC.launches, 'cholesky_solve', 0)
+  monkeypatch.setitem(LC.launches, name, 0)
   h = torch.empty(4, n, n, dtype=dtype, device='meta')
-  g = torch.empty(4, n, dtype=dtype, device='meta')
-  x = LC._launch(LC._MODE_SOLVE, 'cholesky_solve', h, g)
+  if mode == LC._MODE_FACTOR:
+    out = LC._launch(mode, name, h, want_factor=True)
+    assert out.shape == (4, n, n)
+  else:
+    g = torch.empty(4, n, dtype=dtype, device='meta')
+    out = LC._launch(mode, name, h, g)
+    assert out.shape == (4, n)
   assert LC._design(n, dtype) == want
-  assert called == [(want, LC._MODE_SOLVE)]
-  assert x.shape == (4, n) and LC.launches['cholesky_solve'] == 1
+  assert called == [(want, mode)]
+  assert LC.launches[name] == 1

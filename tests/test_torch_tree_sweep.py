@@ -202,6 +202,129 @@ def test_tables_match_the_plane_masks(models):
   np.testing.assert_array_equal(seg['dof_body'], pm.dof_bodyid)
 
 
+def _depths(pm):
+  depth = np.zeros(pm.nbody, np.int64)
+  for b in range(1, pm.nbody):
+    depth[b] = depth[pm.body_parentid[b]] + 1
+  return depth
+
+
+@pytest.mark.parametrize('which', ['env', 'plan'])
+def test_level_tables(models, which):
+  """K5's level table: every body once, the world alone at level 0, each
+  body's parent on the level just above it, tree depth + 1 levels (10 for
+  the reorient hand)."""
+  _, pm = models[which]
+  seg = _segments(*tree_cuda.tables_np(pm))
+  ptr, body = seg['level_ptr'], seg['level_body']
+  np.testing.assert_array_equal(np.sort(body), np.arange(pm.nbody))
+  assert list(ptr[:2]) == [0, 1] and body[0] == 0
+  assert ptr[-1] == pm.nbody and (np.diff(ptr) > 0).all()
+  level = np.zeros(pm.nbody, np.int64)
+  for lvl in range(len(ptr) - 1):
+    level[body[ptr[lvl]:ptr[lvl + 1]]] = lvl
+  for b in range(1, pm.nbody):
+    assert level[b] == level[pm.body_parentid[b]] + 1, b
+  assert len(ptr) - 1 == _depths(pm).max() + 1 == 10
+
+
+def test_table_header_and_sizes(models):
+  """The header has one offset per entry of _INT_SEGS and _FLOAT_SEGS,
+  in order; the float buffer's size is the one K5 copies (its segment
+  sizes follow from the model's dimensions), and K5's copy of the int
+  buffer through dof_body, at its bound, stays inside the buffer."""
+  for which in ('env', 'plan'):
+    _, pm = models[which]
+    ti, tf = tree_cuda.tables_np(pm)
+    ni, nf = len(tree_cuda._INT_SEGS), len(tree_cuda._FLOAT_SEGS)
+    head = ni + nf
+    assert ti[0] == head and ti[ni] == 0
+    assert (np.diff(ti[:ni]) >= 0).all() and (np.diff(ti[ni:head]) >= 0).all()
+    nb, nv, ng, nt, nq = pm.nbody, pm.nv, pm.ngeom, pm.ntendon, pm.nq
+    assert len(tf) == 24 * nb + 8 * nv + 7 * ng + 3 + nt * (nq + nv)
+    end = ti[tree_cuda._INT_SEGS.index('dof_body') + 1]
+    bound = head + 6 * nb + 3 * nv + ng + 1
+    assert end <= bound <= len(ti)
+
+
+def _qmul(q, r):
+  return np.stack([
+      q[0] * r[0] - q[1] * r[1] - q[2] * r[2] - q[3] * r[3],
+      q[0] * r[1] + q[1] * r[0] + q[2] * r[3] - q[3] * r[2],
+      q[0] * r[2] - q[1] * r[3] + q[2] * r[0] + q[3] * r[1],
+      q[0] * r[3] + q[1] * r[2] - q[2] * r[1] + q[3] * r[0]])
+
+
+def _rotate(q, v):
+  t = 2 * np.cross(q[1:], v, axis=0)
+  return v + q[0] * t + np.cross(q[1:], t, axis=0)
+
+
+def _level_fk(pm, ti, tf, qpos, mpos, mquat):
+  """K5's phases 2 and 3 in numpy, reading only the packed tables: every
+  body's local pose from its joint or mocap rows, then x = parent o local
+  in place, level by level.  Returns (xpos (3, nbody, B), xquat (4,
+  nbody, B))."""
+  seg = _segments(ti, tf)
+  nb, nm = pm.nbody, pm.nmocap
+  b_ = qpos.shape[-1]
+  pos = np.zeros((3, nb, b_))
+  quat = np.zeros((4, nb, b_))
+  quat[0] = 1.0
+  jtypes = {int(PT.JointType.FREE): 'free', int(PT.JointType.HINGE): 'hinge',
+            int(PT.JointType.SLIDE): 'slide'}
+  mp, mq = mpos.reshape(3, nm, b_), mquat.reshape(4, nm, b_)
+  for b in range(1, nb):
+    m, a = seg['body_mocap'][b], seg['body_qadr'][b]
+    kind = jtypes.get(int(seg['body_jtype'][b]))
+    if m >= 0:
+      pos[:, b], quat[:, b] = mp[:, m], mq[:, m]
+      continue
+    if kind == 'free':
+      raw = qpos[a + 3:a + 7]
+      pos[:, b] = qpos[a:a + 3]
+      quat[:, b] = raw / np.sqrt(np.maximum((raw * raw).sum(0), 1e-24))
+      continue
+    dq = np.zeros((4, b_))
+    dq[0] = 1.0
+    dp = np.zeros((3, b_))
+    ax = seg['body_jaxis'][3 * b:3 * b + 3, None]
+    if kind == 'hinge':
+      jp = seg['body_jpos'][3 * b:3 * b + 3, None] * np.ones(b_)
+      half = 0.5 * qpos[a]
+      dq = np.concatenate([np.cos(half)[None], ax * np.sin(half)])
+      dp = jp - _rotate(dq, jp)
+    elif kind == 'slide':
+      dp = ax * qpos[a]
+    bq = seg['body_quat'][4 * b:4 * b + 4, None] * np.ones(b_)
+    pos[:, b] = seg['body_pos'][3 * b:3 * b + 3, None] + _rotate(bq, dp)
+    quat[:, b] = _qmul(bq, dq)
+  ptr, body = seg['level_ptr'], seg['level_body']
+  parent = seg['body_parent']
+  for lvl in range(1, len(ptr) - 1):
+    for b in body[ptr[lvl]:ptr[lvl + 1]]:
+      p = parent[b]
+      pos[:, b] = pos[:, p] + _rotate(quat[:, p], pos[:, b])
+      quat[:, b] = _qmul(quat[:, p], quat[:, b])
+  return pos, quat
+
+
+@pytest.mark.parametrize('which', ['env', 'plan'])
+def test_level_composition_gives_fk_plain(models, which):
+  """The local poses composed level by level from the packed tables, as
+  K5 composes them, give fk_plain's xpos and xquat in float64 (only the
+  order of the compositions differs: fk_plain jumps pointers)."""
+  _, pm = models[which]
+  ins = _inputs(pm, 5)
+  want = tree_cuda.fk_plain(pm, *(torch.as_tensor(x) for x in ins))
+  pos, quat = _level_fk(pm, *tree_cuda.tables_np(pm), ins[0], ins[2],
+                        ins[3])
+  np.testing.assert_allclose(pos.reshape(3 * pm.nbody, -1),
+                             want['xpos'].numpy(), rtol=0, atol=1e-12)
+  np.testing.assert_allclose(quat.reshape(4 * pm.nbody, -1),
+                             want['xquat'].numpy(), rtol=0, atol=1e-12)
+
+
 def _gather_dyn(pm, ti, tf, cdof, body10, qvel):
   """K6's phases in numpy, reading only the packed tables as the
   kernel does (rows batch-minor, every sum a gather over a CSR list)."""
