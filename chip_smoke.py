@@ -20,11 +20,23 @@ non-zero otherwise, and on any failed check.  Phases, one JSON line each:
   2. environment model: one control step (5 substeps, exact Newton, Euler
      damping solve, contact 64/64) at B = 256: K3's 45 launches, and the
      step's device time with K3's share of it.
+  2b. env_step: the per-environment path GoalEnvironment.reset and .step
+     run, on the same model and states: `forward`, then one control step
+     of `step_n(refresh='full')`; K3's launches checked exactly (8 in
+     forward, 45 in the step), the first 8 environments held against the
+     port on the CPU in float64, an unbatched call on environment 0 held
+     against row 0; device time of forward, the step and the refresh
+     alone, the step's idle share and launches, K3's share and design.
   3. planner (the main path): PredictiveSampling.solve_batch at bench.py's
      configuration (4 streams x 256 samples x 2 CEM iterations, horizon
      10) from seeded starts and goals: solves/s, launches per solve, action
      and return checks, and rollout returns held against the port on the
      CPU in float64.
+  3b. planner_per_candidate: one stream's solve with batched_rollouts=False
+     (256 samples x 2 CEM iterations, each candidate through the
+     per-environment step_n): wall time of each solve after a warm-up,
+     120 K1 + 120 K2 launches per solve, rollout_return of 8 candidates
+     held against the port on the CPU in float64.
   4. tree sweep: build_tree_sweep (K5 + K6) on the rollouts' states after
      their first control step, against its plain version in float32 and
      float64 (also at B = 37), qm factorable; timed beside
@@ -75,6 +87,9 @@ STREAMS = 4
 SAMPLES = 256
 ITERATIONS = 2
 SOLVES = 5
+# Per-candidate planner (batched_rollouts=False): one stream, timed over
+# PC_SOLVES solves after one warm-up solve.
+PC_SOLVES = 3
 # The juggle model's nv (ROADMAP §A.3), where K1 and K2 leave the register
 # design.
 JUGGLE_NV = 62
@@ -380,6 +395,159 @@ def phase_env(torch, pkg, task):
   return launches
 
 
+def phase_env_step(torch, pkg, task):
+  """forward, then one control step of step_n(refresh='full') at B_ENV on
+  the environment model as compiled: what GoalEnvironment.reset and
+  .step run."""
+  types, step, linalg_cuda = pkg['types'], pkg['step'], pkg['linalg_cuda']
+  model = task.compile(device='cuda')
+  n = task.n_substeps
+  iters = model.opt.solver_iterations
+  check(n == 5 and iters == 8 and model.opt.solver_refactor_every == 1 and
+        not model.opt.implicit_damping and model.npair == 833,
+        'environment model options')
+  gen = torch.Generator().manual_seed(SEED + 1)
+  qpos = start_states(torch, types, model, B_ENV, gen)
+  ctrl = controls(torch, model, 1, B_ENV, gen)[0]
+  data = types.make_data(model, (B_ENV,)).replace(
+      qpos=qpos.to(model.device, model.dtype),
+      ctrl=ctrl.to(model.device, model.dtype))
+  step.step_n(model, step.forward(model, data), n, refresh='full')  # warm-up
+  torch.cuda.synchronize()
+
+  def counted(fn):
+    reset_counts(pkg)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, read_counts(pkg)
+
+  t0 = time.perf_counter()
+  fwd, fwd_launches = counted(lambda: step.forward(model, data))
+  fwd_wall = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  out, step_launches = counted(
+      lambda: step.step_n(model, fwd, n, refresh='full'))
+  step_wall = time.perf_counter() - t0
+  # K3: one factor-and-solve per exact Newton iteration, plus the Euler
+  # damping solve of each substep.
+  check(fwd_launches['cholesky_solve'] == iters and
+        sum(fwd_launches.values()) == iters, f'forward launches '
+        f'{fwd_launches}')
+  check(step_launches['cholesky_solve'] == n * (iters + 1) and
+        sum(step_launches.values()) == n * (iters + 1),
+        f'step_n launches {step_launches}')
+  for what, t in (('qpos', out.qpos), ('qvel', out.qvel), ('xpos', out.xpos),
+                  ('geom_xpos', out.geom_xpos), ('cvel', out.cvel),
+                  ('qacc', fwd.qacc)):
+    check(bool(torch.isfinite(t).all()), f'non-finite {what}')
+  in_contact = (out.contact.dist < 0).any(-1).float().mean().item()
+
+  # The first 8 environments against the port on the CPU in float64, at
+  # the planning rollouts' limits (PERF.md §2): qpos 1e-4, qvel 1e-2, the
+  # refreshed frames 1e-4 of their max-abs.
+  k = 8
+  cpu = task.compile(device='cpu', dtype=torch.float64)
+  d_cpu = types.make_data(cpu, (k,)).replace(qpos=qpos[:k].clone(),
+                                             ctrl=ctrl[:k].clone())
+  ref = step.step_n(cpu, step.forward(cpu, d_cpu), n, refresh='full')
+  errs = _state_errs(torch, out, ref, k)
+  check(errs['qpos'] < 1e-4 and errs['qvel'] < 1e-2 and
+        errs['xpos_rel'] < 1e-4 and errs['geom_xpos_rel'] < 1e-4,
+        f'env step vs CPU float64: {errs}')
+
+  # One environment without a batch axis: K3 at (1, 30, 30).
+  env0 = types.map_data(data, lambda x: x[0])
+  one, one_launches = counted(lambda: step.step_n(
+      model, step.forward(model, env0), n, refresh='full'))
+  check(one.qpos.shape == (model.nq,) and
+        one_launches['cholesky_solve'] == iters + n * (iters + 1),
+        f'unbatched call: {tuple(one.qpos.shape)}, {one_launches}')
+  one_errs = _state_errs(torch, types.map_data(out, lambda x: x[:1]),
+                         types.map_data(one, lambda x: x[None].double().cpu()),
+                         1)
+  check(one_errs['qpos'] < 1e-4 and one_errs['qvel'] < 1e-2 and
+        one_errs['xpos_rel'] < 1e-4, f'unbatched vs row 0: {one_errs}')
+
+  # K3 on this path's own inputs against its plain version and float64:
+  # the first Newton Hessian and the first Euler matrix M + hD of a control
+  # step, for the batch (B_ENV, nv, nv) and for one environment (1, nv, nv).
+  nv = model.nv
+  k3_checks = {}
+  for label, d, rows in (('batched', fwd, B_ENV),
+                         ('unbatched', types.map_data(fwd, lambda x: x[0]),
+                          1)):
+    _, seen = _capture_first(linalg_cuda, ('cholesky_solve',), lambda: (
+        step.step_n(model, d, n, refresh='full')))
+    for caller, what in (('newton_iter', 'newton_hessian'),
+                         ('euler_from_smooth', 'euler_matrix')):
+      h, g = seen[('cholesky_solve', caller)]
+      check(h.shape == (rows, nv, nv) and g.shape == (rows, nv),
+            f'K3 {what} {label}: {tuple(h.shape)}')
+      for key, v in _vs_plain(torch, linalg_cuda, 'cholesky_solve', h, g,
+                              f'{label} {what}').items():
+        k3_checks[f'{label}_{what}{key}'] = v
+
+  # Device time: forward, the control step, and its refresh alone (step_n
+  # with no substep runs only the refresh).
+  fwd_ms, _ = _device_profile(torch, lambda: step.forward(model, data), 1)
+  step_ms, by_kernel = _device_profile(
+      torch, lambda: step.step_n(model, fwd, n, refresh='full'), 1)
+  refresh_ms, _ = _device_profile(
+      torch, lambda: step.step_n(model, out, 0, refresh='full'), 1)
+  k3 = {key: v for key, v in by_kernel.items() if 'cholesky' in key}
+  k3_ms = sum(k3.values())
+  check(_ran_design(k3) == 'registers', f'K3 ran {list(k3)}')
+  window = _busy_window(torch, lambda: step.step_n(model, fwd, n,
+                                                   refresh='full'))
+  emit({'phase': 'env_step', 'batch': B_ENV, 'substeps': n,
+        'npair': model.npair, 'nv': model.nv,
+        'launches': {'forward': fwd_launches, 'step_n': step_launches,
+                     'unbatched_forward_and_step_n': one_launches},
+        'wall_s': {'forward': fwd_wall, 'step_n': step_wall},
+        'envs_in_contact': in_contact,
+        'cpu_f64_max_err': errs, 'unbatched_vs_row0_max_err': one_errs,
+        'k3_vs_plain': k3_checks,
+        'device_ms': {'forward': fwd_ms, 'step_n_full': step_ms,
+                      'refresh_full': refresh_ms},
+        'step_window': window,
+        'k3_device_ms': k3_ms, 'k3_share': k3_ms / step_ms,
+        'k3_design': _ran_design(k3)})
+
+
+def _state_errs(torch, card, ref, k):
+  """Max-abs errors of the first k environments of a card Data against a
+  float64 CPU Data: qpos, qvel, and the frames relative to their
+  max-abs."""
+  def err(a, b):
+    return (a[:k].double().cpu() - b).abs().max().item()
+
+  out = {'qpos': err(card.qpos, ref.qpos), 'qvel': err(card.qvel, ref.qvel)}
+  for f in ('xpos', 'geom_xpos'):
+    want = getattr(ref, f)
+    out[f + '_rel'] = err(getattr(card, f), want) / max(
+        want.abs().max().item(), 1e-12)
+  return out
+
+
+def _busy_window(torch, fn):
+  """Wall time of one call of fn (ended by a synchronize) under the
+  profiler, the device time its kernels took, the idle share and the
+  kernel launches."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+  kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+  busy_us = sum(e.self_device_time_total for e in kern)
+  check(busy_us > 0, 'the profiler saw no device time')
+  return {'wall_ms': wall_ms, 'device_busy_ms': busy_us / 1e3,
+          'device_idle_share': max(0.0, 1 - busy_us / 1e3 / wall_ms),
+          'kernel_launches': sum(e.count for e in kern)}
+
+
 def _call_ms(torch, fn, reps):
   """Per-call time of back-to-back calls, host work included: what the
   path pays for one call."""
@@ -488,58 +656,13 @@ def phase_kernels(torch, pkg, main):
           'path_hessians': (main['hessians']['h'], main['hessians']['g'])}
   check(sets['path_hessians'][0].shape == (B_PLAN, n, n),
         'captured Hessians')
-  low = torch.tril(torch.ones(n, n, dtype=torch.bool, device=dev))
   rows, checks = {}, {}
   for name in ('cholesky_solve_factor', 'cholesky_resolve_const',
                'cholesky_solve', 'cholesky_factor'):
     errs = {}
     for set_name, (h, g) in sets.items():
-      h64d, g64d = h.double(), g.double()
-      x_ref = torch.linalg.solve(h64d, g64d)
-      # Condition-aware tolerance for float32: kernel and plain version are
-      # both backward-stable Choleskys, so they may differ by ~cond * eps.
-      ev = torch.linalg.eigvalsh(h64d)
-      cond = (ev[:, -1] / ev[:, 0].clamp_min(1e-300)).max().item()
-      scale = x_ref.abs().max().item()
-      tol = max(1e-4, 100 * cond * 6e-8) * scale
-      if name in ('cholesky_solve_factor', 'cholesky_factor'):
-        if name == 'cholesky_solve_factor':
-          x, fac = lc.cholesky_solve_factor(h, g)
-          x_p, fac_p = lc.solve_factor_plain(h, g)
-        else:
-          # K4, and the K4 + K2 pair's solution.
-          fac = lc.cholesky_factor(h)
-          fac_p = lc.factor_plain(h)
-          x = lc.cholesky_resolve(fac, g)
-          x_p = lc.solve_plain(h, g)
-        fac_err = (fac - fac_p)[:, low].abs().max().item()
-        fac_tol = 1e-4 * fac_p[:, low].abs().max().item()
-        check(fac_err <= fac_tol, f'{name} factor {set_name}: {fac_err}')
-        errs[set_name + '_factor'] = fac_err
-      elif name == 'cholesky_resolve_const':
-        fac = lc.factor_plain(h)
-        x = lc.cholesky_resolve_const(fac, g)
-        x_p = lc.resolve_plain(fac, g)
-      else:
-        x = lc.cholesky_solve(h, g)
-        x_p = lc.solve_plain(h, g)
-      err = (x - x_p).abs().max().item()
-      err64 = (x.double() - x_ref).abs().max().item()
-      check(err <= tol, f'{name} vs plain on {set_name}: {err} > {tol}')
-      check(err64 <= tol, f'{name} vs float64 on {set_name}: {err64} > {tol}')
-      # Backward error |H x - g| / (n |H| |x| + |g|), independent of the
-      # conditioning: a float32 Cholesky keeps it near n * eps (~2e-6).
-      x64 = x.double()
-      res = (h64d @ x64[..., None])[..., 0] - g64d
-      bwd = (res.abs().amax(-1) / (n * h64d.abs().amax((-2, -1))
-                                   * x64.abs().amax(-1)
-                                   + g64d.abs().amax(-1))).max().item()
-      check(bwd <= 1e-4, f'{name} backward error on {set_name}: {bwd}')
-      errs[set_name + '_backward'] = bwd
-      errs[set_name] = err
-      errs[set_name + '_vs_f64'] = err64
-      errs[set_name + '_tol'] = tol
-      errs[set_name + '_cond'] = cond
+      for key, v in _vs_plain(torch, lc, name, h, g, set_name).items():
+        errs[set_name + key] = v
     checks[name] = errs
 
     h, g = sets['seeded']
@@ -603,6 +726,85 @@ def phase_kernels(torch, pkg, main):
   checks['rank_deficient'] = _rank_deficient_checks(torch, lc, n, dev, gen)
   emit({'phase': 'kernel_checks', 'errors': checks})
   return rows
+
+
+def _vs_plain(torch, lc, name, h, g, what, fac=None):
+  """One kernel against its plain version and against a float64 solve on
+  one (h, g), at whatever batch shape the caller passes; K1 and K4's
+  factors against the plain factor.  K2 resolves against `fac` when given
+  (then h is the matrix it factors), else against factor_plain(h).
+  Returns the errors keyed by suffix ('' is the error against the plain
+  version)."""
+  n = h.shape[-1]
+  low = torch.tril(torch.ones(n, n, dtype=torch.bool, device=h.device))
+  h64d, g64d = h.double(), g.double()
+  x_ref = torch.linalg.solve(h64d, g64d)
+  # Condition-aware tolerance for float32: kernel and plain version are
+  # both backward-stable Choleskys, so they may differ by ~cond * eps.
+  ev = torch.linalg.eigvalsh(h64d)
+  cond = (ev[..., -1] / ev[..., 0].clamp_min(1e-300)).max().item()
+  scale = x_ref.abs().max().item()
+  tol = max(1e-4, 100 * cond * 6e-8) * scale
+  out = {}
+  if name in ('cholesky_solve_factor', 'cholesky_factor'):
+    if name == 'cholesky_solve_factor':
+      x, fac = lc.cholesky_solve_factor(h, g)
+      x_p, fac_p = lc.solve_factor_plain(h, g)
+    else:
+      # K4, and the K4 + K2 pair's solution.
+      fac = lc.cholesky_factor(h)
+      fac_p = lc.factor_plain(h)
+      x = lc.cholesky_resolve(fac, g)
+      x_p = lc.solve_plain(h, g)
+    fac_err = (fac - fac_p)[..., low].abs().max().item()
+    fac_tol = 1e-4 * fac_p[..., low].abs().max().item()
+    check(fac_err <= fac_tol, f'{name} factor {what}: {fac_err}')
+    out['_factor'] = fac_err
+  elif name == 'cholesky_resolve_const':
+    fac = lc.factor_plain(h) if fac is None else fac
+    x = lc.cholesky_resolve_const(fac, g)
+    x_p = lc.resolve_plain(fac, g)
+  else:
+    x = lc.cholesky_solve(h, g)
+    x_p = lc.solve_plain(h, g)
+  err = (x - x_p).abs().max().item()
+  err64 = (x.double() - x_ref).abs().max().item()
+  check(err <= tol, f'{name} vs plain on {what}: {err} > {tol}')
+  check(err64 <= tol, f'{name} vs float64 on {what}: {err64} > {tol}')
+  # Backward error |H x - g| / (n |H| |x| + |g|), independent of the
+  # conditioning: a float32 Cholesky keeps it near n * eps (~2e-6).
+  x64 = x.double()
+  res = (h64d @ x64[..., None])[..., 0] - g64d
+  bwd = (res.abs().amax(-1) / (n * h64d.abs().amax((-2, -1))
+                               * x64.abs().amax(-1)
+                               + g64d.abs().amax(-1))).max().item()
+  check(bwd <= 1e-4, f'{name} backward error on {what}: {bwd}')
+  out.update({'': err, '_vs_f64': err64, '_backward': bwd, '_tol': tol,
+              '_cond': cond})
+  return out
+
+
+def _capture_first(lc, names, fn):
+  """Runs fn with the wrappers `names` of linalg_cuda patched to keep a
+  copy of the inputs of their first call from each calling function
+  (keyed (wrapper, caller)); returns fn's result and the copies."""
+  seen, real = {}, {nm: getattr(lc, nm) for nm in names}
+
+  def patched(nm):
+    def wrapper(*args):
+      key = (nm, sys._getframe(1).f_code.co_name)
+      if key not in seen:
+        seen[key] = tuple(a.detach().clone() for a in args)
+      return real[nm](*args)
+    return wrapper
+
+  for nm in names:
+    setattr(lc, nm, patched(nm))
+  try:
+    return fn(), seen
+  finally:
+    for nm in names:
+      setattr(lc, nm, real[nm])
 
 
 def _design_turns(torch, lc, name, n, fn, prev):
@@ -975,7 +1177,111 @@ def phase_planner(torch, pkg):
         pst.best_return.tolist(), 'returns_vs_cpu_f64_rel': rel,
         'rollouts_per_call': STREAMS * SAMPLES * ITERATIONS})
   return dict(launches=launches, planner=planner, data=data_b, goals=goals,
-              pgen=pgen, pstate=pst)
+              pgen=pgen, pstate=pst, walls=walls)
+
+
+def phase_planner_per_candidate(torch, pkg, bench_walls):
+  """PredictiveSampling.solve with batched_rollouts=False: one stream,
+  SAMPLES candidates x ITERATIONS, each candidate through the
+  per-environment step_n (rollout_return)."""
+  ps, types, manip = pkg['ps'], pkg['types'], pkg['manipulation']
+  po = pkg['prop_orientation']
+  task = manip.build_task('reorient', 'state_dense')
+  cfg = ps.PredictiveSamplingConfig(
+      horizon=H, num_samples=SAMPLES, iterations=ITERATIONS,
+      batched_rollouts=False, **PLAN)
+  planner = ps.PredictiveSampling(task, cfg)
+  model = planner.model
+  dev, dtype = model.device, model.dtype
+  check(dev.type == 'cuda' and dtype == torch.float32, 'planner device')
+  gen = torch.Generator().manual_seed(SEED + 6)
+  qpos = start_states(torch, types, model, 1, gen)[0]
+  goal64 = po.uniform_quaternion(gen, (), torch.float64)
+  data = types.make_data(model).replace(qpos=qpos.to(dev, dtype))
+  goal = goal64.to(dev, dtype)
+  pgen = torch.Generator(device=dev).manual_seed(SEED)
+  pst = planner.init_state()
+  t0 = time.perf_counter()
+  action, pst = planner.solve(data, goal, pst, pgen)             # warm-up
+  torch.cuda.synchronize()
+  warm_s = time.perf_counter() - t0
+
+  # K1 and K2 on this path's own inputs against their plain versions and
+  # float64, at (SAMPLES, nv, nv): the first refactor Hessian (K1, and K2
+  # on its plain factor) and the first stale-factor resolve (K2 on the
+  # factor K1 gave; the matrix it factors is L L^T).
+  lc = pkg['linalg_cuda']
+  nv = model.nv
+  _, seen = _capture_first(
+      lc, ('cholesky_solve_factor', 'cholesky_resolve_const'),
+      lambda: planner.solve(data, goal, pst, pgen))
+  h, g = seen[('cholesky_solve_factor', 'newton_iter')]
+  fac, g2 = seen[('cholesky_resolve_const', 'newton_iter')]
+  check(h.shape == fac.shape == (SAMPLES, nv, nv) and
+        g.shape == g2.shape == (SAMPLES, nv),
+        f'per-candidate K1/K2 inputs {tuple(h.shape)}, {tuple(fac.shape)}')
+  f64 = fac.double()
+  ll = (torch.tril(f64, -1)
+        + torch.diag_embed(1 / torch.diagonal(f64, dim1=-2, dim2=-1)))
+  kernel_checks = {}
+  for name, args, kw, what in (
+      ('cholesky_solve_factor', (h, g), {}, 'hessian'),
+      ('cholesky_resolve_const', (h, g), {}, 'hessian'),
+      ('cholesky_resolve_const', (ll @ ll.mT, g2), {'fac': fac},
+       'path_factor')):
+    for key, v in _vs_plain(torch, lc, name, *args, f'per-candidate {what}',
+                            **kw).items():
+      kernel_checks[f'{name}_{what}{key}'] = v
+
+  reset_counts(pkg)
+  walls = []
+  for _ in range(PC_SOLVES):
+    t0 = time.perf_counter()
+    action, pst = planner.solve(data, goal, pst, pgen)
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter() - t0)
+  launches = read_counts(pkg)
+  per_call = {k: v / PC_SOLVES for k, v in launches.items()}
+  per_solve = ITERATIONS * H * planner.n_plan_substeps * 2
+  check(per_call['cholesky_solve_factor'] == per_solve and
+        per_call['cholesky_resolve_const'] == per_solve and
+        launches['cholesky_solve'] == 0 and
+        launches['cholesky_factor'] == 0 and
+        launches['tree_sweep_fk'] == 0 and launches['tree_sweep_dyn'] == 0,
+        f'per-candidate launches per solve {per_call}')
+  check(action.shape == (planner.nu,) and
+        bool(torch.isfinite(action).all()), 'per-candidate action')
+  check(bool(((action >= planner._lo) & (action <= planner._hi)).all()),
+        'per-candidate action off range')
+  check(bool(torch.isfinite(pst.best_return)), 'non-finite best return')
+
+  # rollout_return of 8 candidates over 2 control steps against the port
+  # on the CPU in float64: the planner phase's limit, 1e-3 of the largest
+  # return.
+  cpu = ps.PredictiveSampling(task, cfg, device='cpu', dtype=torch.float64)
+  k, steps = 8, 2
+  u = torch.rand(k, steps, planner.nu, generator=gen, dtype=torch.float64)
+  acts = cpu._lo + (cpu._hi - cpu._lo) * u
+  d_card, g_card = planner._broadcast(data, goal, k)
+  d_cpu, g_cpu = cpu._broadcast(
+      types.make_data(cpu.model).replace(qpos=qpos.clone()), goal64, k)
+  r_card = planner.rollout_return(d_card, g_card, acts.to(dev, dtype))
+  r_cpu = cpu.rollout_return(d_cpu, g_cpu, acts)
+  rel = ((r_card.double().cpu() - r_cpu).abs().max()
+         / r_cpu.abs().max().clamp_min(1.0)).item()
+  check(rel <= 1e-3, f'per-candidate returns vs CPU float64: {rel}')
+
+  bench_per_stream = sum(bench_walls) / len(bench_walls)
+  emit({'phase': 'planner_per_candidate',
+        'config': {'streams': 1, 'samples': SAMPLES,
+                   'iterations': ITERATIONS, 'horizon': H,
+                   'batched_rollouts': False, **PLAN},
+        'wall_s_per_solve': walls, 'warmup_s': warm_s,
+        'solves_per_s': PC_SOLVES / sum(walls),
+        'wall_vs_bench_call': (sum(walls) / len(walls)) / bench_per_stream,
+        'launches_per_solve': per_call, 'kernels_vs_plain': kernel_checks,
+        'best_return': pst.best_return.item(),
+        'returns_vs_cpu_f64_rel': rel})
 
 
 # Stages of one substep, as step_n_b reaches them through module attributes.
@@ -1050,23 +1356,11 @@ def phase_profile(torch, pkg, main):
 
 def phase_profile_solve(torch, planner_out):
   """Device busy time and idle share over one solve_batch."""
-  from torch.autograd import DeviceType
-  from torch.profiler import ProfilerActivity, profile
   p = planner_out
-  planner = p['planner']
-  with profile(activities=[ProfilerActivity.CUDA]) as prof:
-    t0 = time.perf_counter()
-    planner.solve_batch(p['data'], p['goals'], p['pstate'], p['pgen'])
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-  kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-  busy_us = sum(e.self_device_time_total for e in kern)
-  check(busy_us > 0, 'the profiler saw no device time')
   emit({'phase': 'profile_solve',
         'window': f'one solve_batch, {STREAMS} x {SAMPLES} x {ITERATIONS}',
-        'wall_ms': wall_ms, 'device_busy_ms': busy_us / 1e3,
-        'device_idle_share': max(0.0, 1 - busy_us / 1e3 / wall_ms),
-        'kernel_launches': sum(e.count for e in kern)})
+        **_busy_window(torch, lambda: p['planner'].solve_batch(
+            p['data'], p['goals'], p['pstate'], p['pgen']))})
 
 
 def main():
@@ -1101,7 +1395,9 @@ def main():
   phase_probe(torch, pkg, smi)
   main_out = phase_rollouts(torch, pkg)
   env_launches = phase_env(torch, pkg, main_out['task'])
+  phase_env_step(torch, pkg, main_out['task'])
   planner_out = phase_planner(torch, pkg)
+  phase_planner_per_candidate(torch, pkg, planner_out['walls'])
   tree_launches, tree_rows = phase_tree_sweep(torch, pkg, main_out)
   factor_launches = phase_factor_entry(torch, pkg, main_out)
   rows = phase_kernels(torch, pkg, main_out)

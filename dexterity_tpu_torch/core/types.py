@@ -356,6 +356,17 @@ class Data:
     return dataclasses.replace(self, **kw)
 
 
+def map_data(data: Data, fn: Callable) -> Data:
+  """Applies fn to every tensor of a Data, its contact slots included."""
+  contact = data.contact.replace(
+      **{f.name: fn(getattr(data.contact, f.name))
+         for f in dataclasses.fields(data.contact)})
+  return data.replace(
+      contact=contact,
+      **{f.name: fn(getattr(data, f.name)) for f in dataclasses.fields(data)
+         if f.name != 'contact'})
+
+
 def make_data(model: Model, batch: Tuple[int, ...] = ()) -> Data:
   """Zero-initialized Data at qpos0 with leading batch shape `batch`, on
   the model's device in the model's dtype."""

@@ -173,19 +173,31 @@ def _bcast_k(x):
   return x[..., None, None, :]
 
 
-def _contact_parts(model: Model, data: Data, dtype, groups):
-  """Top-K contact rows with a pyramidal friction cone, from the narrow
-  phase's group list (collide_group_planes).
+def _contact_parts(model: Model, data: Data, dtype, groups=None):
+  """Top-K contact rows with a pyramidal friction cone.
+
+  The candidate points come from the narrow phase's group list
+  (collide_group_planes, the hot substep) or, with groups=None, from
+  data.contact (the refresh path, after narrowphase.collision).
 
   Returns ('dense', jn, aref, d, invweight) when every pair has condim 1,
   else ('pyr', R, mu, aref, d, invweight) with R = [jn; jf_1..jf_ndim]
   (B, 1+ndim, k, nv) — the factored pyramid (see ContactBlock)."""
-  if model.npair == 0 or not groups:
+  if model.npair == 0 or (groups is not None and not groups):
     return None
   h = model.opt.timestep
   max_condim = max(model.pair_condim)
 
-  score = torch.cat([g['dist'] - g['margin'] for g in groups], -1)
+  if groups is None:
+    c = data.contact
+    score = c.dist - c.margin
+    payload = torch.cat([c.pos, c.frame], -2)             # (B, 12, npoint)
+    pair = torch.clamp_min(c.pair, 0)
+  else:
+    score = torch.cat([g['dist'] - g['margin'] for g in groups], -1)
+    payload = torch.cat([torch.stack(list(g['pos']) + list(g['frame']),
+                                     dim=-2) for g in groups], -1)
+    pair = torch.cat([g['pair'] for g in groups], -1)
   npoint = score.shape[-1]
   k_sel = min(model.opt.contact_top_k, npoint)
   # Exact top-K deepest, first index first among ties.
@@ -194,12 +206,8 @@ def _contact_parts(model: Model, data: Data, dtype, groups):
   active = score_sel < 0
   r = torch.clamp_max(score_sel, 0.0)
 
-  payload = torch.cat([
-      torch.stack(list(g['pos']) + list(g['frame']), dim=-2) for g in groups],
-      -1)                                                 # (B, 12, npoint)
-  selp = torch.gather(payload, -1, sel.unsqueeze(-2).expand(
-      sel.shape[:-1] + (12, k_sel)))                      # (B, 12, k)
-  pid = torch.gather(torch.cat([g['pair'] for g in groups], -1), -1, sel)
+  selp = primitives.onehot_select(sel, payload)           # (B, 12, k)
+  pid = torch.gather(pair, -1, sel)
   pos = selp[..., 0:3, :]
   nrm = selp[..., 3:6, :]
   t1d = selp[..., 6:9, :]
@@ -346,10 +354,11 @@ def _static_block(model: Model, parts, dtype):
 
 
 def assemble_blocks(model: Model, data: Data, contact_groups=None):
-  """Block-structured constraint assembly (the hot-path form).
+  """Block-structured constraint assembly (the solver's form).
 
   Reference efc ordering preserved across blocks: frictionloss, joint
-  limits, tendon limits, contacts."""
+  limits, tendon limits, contacts (from `contact_groups`, or from
+  data.contact when None)."""
   if model.neq:
     raise NotImplementedError('equality constraint rows are not ported yet')
   dtype = data.qpos.dtype
@@ -370,17 +379,98 @@ def assemble_blocks(model: Model, data: Data, contact_groups=None):
     static_parts.append((tj, tr, _bigd(td, ti, dtype), None))
   if static_parts:
     blocks.append(_static_block(model, static_parts, dtype))
-  parts = _contact_parts(model, data, dtype, contact_groups)
-  if parts is not None:
-    if parts[0] == 'dense':
-      _, jn, aref, dd, iw = parts
-      blocks.append(DenseBlock(jn, aref, _bigd(dd, iw, dtype), _UNILATERAL,
-                               None, np.zeros(jn.shape[-2], bool)))
-    else:
-      _, rmat, mu, aref, dd, iw = parts
-      blocks.append(ContactBlock(rmat, mu, aref, _bigd(dd, iw, dtype),
-                                 _UNILATERAL))
+  cb = _contact_block(model, data, dtype, groups=contact_groups)
+  if cb is not None:
+    blocks.append(cb)
   return blocks
+
+
+class Rows(NamedTuple):
+  """Dense concatenated constraint rows (assemble)."""
+  J: torch.Tensor          # (B, nrow, nv)
+  aref: torch.Tensor       # (B, nrow)
+  d: torch.Tensor          # (B, nrow) impedance (0 for disabled rows)
+  invweight: torch.Tensor  # (B, nrow)
+  fl: torch.Tensor         # (B, nrow) frictionloss bound (FL rows only)
+  kind: np.ndarray         # (nrow,) static row-type codes
+  # Static: True for rows whose force goes through the joints (limits,
+  # frictionloss); False for contacts.
+  transmitted: np.ndarray  # (nrow,) bool
+
+
+def _contact_rows(model: Model, data: Data, dtype, groups=None):
+  """Dense contact rows (J, aref, d, invweight): the pyramid's rows
+  jn ± mu_j jf_j written out, (j, sign) groups, + before -."""
+  parts = _contact_parts(model, data, dtype, groups=groups)
+  if parts is None:
+    bshape = data.qpos.shape[:-1]
+    z = data.qpos.new_zeros(bshape + (0,))
+    return data.qpos.new_zeros(bshape + (0, model.nv)), z, z, z
+  if parts[0] == 'dense':
+    return parts[1:]
+  _, rmat, mu, aref, dd, iw = parts
+  jn, jf = rmat[..., 0, :, :], rmat[..., 1:, :, :]
+  rows = torch.cat([jn + sign * mu[..., j, :, None] * jf[..., j, :, :]
+                    for j in range(jf.shape[-3]) for sign in (1.0, -1.0)],
+                   -2)
+  return rows, aref, dd, iw
+
+
+def _contact_block(model: Model, data: Data, dtype, groups=None):
+  """Contact rows as a solver block (the factored pyramid when
+  condim > 1), or None without contact rows."""
+  parts = _contact_parts(model, data, dtype, groups=groups)
+  if parts is None:
+    return None
+  if parts[0] == 'dense':
+    _, jn, aref, dd, iw = parts
+    return DenseBlock(jn, aref, _bigd(dd, iw, dtype), _UNILATERAL, None,
+                      np.zeros(jn.shape[-2], bool))
+  _, rmat, mu, aref, dd, iw = parts
+  return ContactBlock(rmat, mu, aref, _bigd(dd, iw, dtype), _UNILATERAL)
+
+
+def assemble(model: Model, data: Data) -> Rows:
+  """Dense concatenated rows in MuJoCo's efc order (frictionloss, joint
+  limits, tendon limits, contacts from data.contact); the solver uses
+  assemble_blocks.  Equality rows are not ported: a model with neq > 0
+  raises, as assemble_blocks does."""
+  if model.neq:
+    raise NotImplementedError('equality constraint rows are not ported yet')
+  dtype = data.qpos.dtype
+  bshape = data.qpos.shape[:-1]
+  nv = model.nv
+
+  def const_rows(j):
+    return torch.as_tensor(j, dtype=dtype, device=data.qpos.device).expand(
+        bshape + j.shape)
+
+  fdof, fr, fd, fi, ffl = _fl_rows(model, data, dtype)
+  fj = np.zeros((len(fdof), nv))
+  fj[np.arange(len(fdof)), fdof] = 1.0
+  ldof, lsign, lr, ld, li = _jnt_limit_rows(model, data, dtype)
+  lj = np.zeros((len(ldof), nv))
+  lj[np.arange(len(ldof)), ldof] = lsign
+  tj, tr, td, ti = _ten_limit_rows(model, data, dtype)
+  cj, cr, cd, ci = _contact_rows(model, data, dtype)
+
+  n_f, n_l, n_t, n_c = len(fdof), len(ldof), tj.shape[0], cj.shape[-2]
+  kind = np.concatenate([
+      np.full(n_f, _FRICTIONLOSS, np.int32),
+      np.full(n_l + n_t + n_c, _UNILATERAL, np.int32)])
+  transmitted = np.concatenate([np.ones(n_f + n_l + n_t, bool),
+                                np.zeros(n_c, bool)])
+
+  def rowvec(x):
+    return x.expand(bshape + x.shape[-1:])
+
+  zeros = data.qpos.new_zeros(bshape + (n_l + n_t + n_c,))
+  return Rows(
+      J=torch.cat([const_rows(fj), const_rows(lj), const_rows(tj), cj], -2),
+      aref=torch.cat([fr, lr, tr, cr], -1),
+      d=torch.cat([fd, ld, td, cd], -1),
+      invweight=torch.cat([rowvec(fi), rowvec(li), rowvec(ti), ci], -1),
+      fl=torch.cat([ffl, zeros], -1), kind=kind, transmitted=transmitted)
 
 
 # ---------------------------------------------------------------------------
@@ -491,7 +581,9 @@ def _mv(m, v):
 
 def solve(model: Model, data: Data, qfrc_smooth: torch.Tensor,
           contact_groups=None) -> Data:
-  """Newton over block-structured rows, batch-leading."""
+  """Newton over block-structured rows, batch-leading.  The contacts come
+  from `contact_groups` (the hot substep's narrow phase) or, when None,
+  from data.contact."""
   dtype = data.qpos.dtype
   nv = model.nv
   if model.opt.implicit_damping:

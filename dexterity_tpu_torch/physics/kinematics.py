@@ -4,8 +4,9 @@ World-frame Plücker coordinates about the world origin: motion vectors
 are [angular(3), linear-velocity-of-origin-coincident-point(3)].
 
 Layouts follow the JAX package: the plane functions take component planes
-with the batch TRAILING ((nq, B) in, (3, nbody, B) out), `fwd_position`
-takes a batch-leading Data.
+with the batch TRAILING ((nq, B) in, (3, nbody, B) out); `fwd_position`,
+`fwd_velocity_kinematics` and the Jacobians take a Data with any leading
+batch shape (none for one environment).
 """
 
 from __future__ import annotations
@@ -232,6 +233,15 @@ def frame_planes(xpos_p, xquat_p, bodyid, pos_const, quat_const, dtype):
   return pos, mat
 
 
+def geom_planes(model: Model, xpos_p, xquat_p) -> torch.Tensor:
+  """(12, ngeom, *B) geom frame planes: rows 0-2 position, 3-11 row-major
+  rotation (the narrow phase's input layout)."""
+  pos, mat = frame_planes(xpos_p, xquat_p,
+                          model.index('geom_bodyid', model.geom_bodyid),
+                          model.geom_pos, model.geom_quat, xpos_p.dtype)
+  return torch.stack(pos + mat)
+
+
 def _batch_minor(x: torch.Tensor, nb: int) -> torch.Tensor:
   """Moves the first nb (batch) axes to the end."""
   return x.movedim(tuple(range(nb)), tuple(range(x.dim() - nb, x.dim())))
@@ -243,17 +253,48 @@ def _aos(planes, nb: int) -> torch.Tensor:
   return p.movedim((0, 1), (-1, -2))
 
 
+def _joint_local_qpos(model: Model, ji: int, qpos: torch.Tensor):
+  """Joint ji's slice of qpos (..., nq): (position, quaternion) for a
+  free joint, (None, quaternion) for a ball, (scalar, None) otherwise."""
+  adr = model.jnt_qposadr[ji]
+  jtype = JointType(model.jnt_type[ji])
+  if jtype == JointType.FREE:
+    return qpos[..., adr:adr + 3], qpos[..., adr + 3:adr + 7]
+  if jtype == JointType.BALL:
+    return None, qpos[..., adr:adr + 4]
+  return qpos[..., adr], None
+
+
 def fwd_position(model: Model, data: Data) -> Data:
   """Body/site/geom world poses, inertial frames, dof axes and tendon
-  lengths for a batch-leading Data (single-jointed bodies, which every
-  dexterity model has)."""
-  if not tree.tree_tables(model).single_jointed:
-    raise NotImplementedError('fwd_position: bodies with several joints')
+  lengths for a Data with any leading batch shape (none for one
+  environment).
+
+  Every body with at most one joint (every dexterity model): local poses
+  at once, then pointer-jumping composition (`body_poses_planes`, which
+  the JAX package calls _fwd_position_jump).  Otherwise the general
+  body-at-a-time recursion (`_fwd_position_unrolled`)."""
+  nb = data.qpos.dim() - 1
+  if tree.tree_tables(model).single_jointed:
+    xpos_p, xquat_p, cdof6 = body_poses_planes(
+        model, _batch_minor(data.qpos, nb), _batch_minor(data.mocap_pos, nb),
+        _batch_minor(data.mocap_quat, nb))
+  else:
+    xpos, xquat, cdof = _fwd_position_unrolled(model, data)
+    xpos_p, xquat_p, cdof6 = (_planes(x) for x in (xpos, xquat, cdof))
+  return _fwd_position_finish(model, data, xpos_p, xquat_p, cdof6)
+
+
+def _planes(x: torch.Tensor) -> torch.Tensor:
+  """(*B, n, c) -> (c, n, *B): the inverse of _aos."""
+  return x.movedim((-1, -2), (0, 1))
+
+
+def _fwd_position_finish(model: Model, data: Data, xpos_p, xquat_p, cdof6):
+  """Shared tail from the body pose and dof-axis planes: inertial, site
+  and geom frames, tendon lengths, all as batch-leading AoS fields."""
   nb = data.qpos.dim() - 1
   dtype = data.qpos.dtype
-  xpos_p, xquat_p, cdof6 = body_poses_planes(
-      model, _batch_minor(data.qpos, nb), _batch_minor(data.mocap_pos, nb),
-      _batch_minor(data.mocap_quat, nb))
   bodies = np.arange(model.nbody)
   ipos, imat = frame_planes(xpos_p, xquat_p, bodies, model.body_ipos,
                             model.body_iquat, dtype)
@@ -278,6 +319,84 @@ def fwd_position(model: Model, data: Data) -> Data:
       cdof=_aos(cdof6, nb), ten_length=ten_length)
 
 
+def _fwd_position_unrolled(model: Model, data: Data):
+  """General body-at-a-time FK (multi-joint bodies): (xpos (*B, nbody,
+  3), xquat (*B, nbody, 4), cdof (*B, nv, 6))."""
+  qpos = data.qpos
+  bshape = qpos.shape[:-1]
+  kw = dict(dtype=qpos.dtype, device=qpos.device)
+  eye = torch.eye(3, **kw)
+  zero3 = torch.zeros(bshape + (3,), **kw)
+
+  def const(t):
+    return t.to(qpos.dtype).expand(bshape + t.shape)
+
+  def row(ang, lin):
+    return torch.cat(torch.broadcast_tensors(ang, lin), -1)
+
+  xpos = [zero3]
+  xquat = [const(torch.tensor([1.0, 0.0, 0.0, 0.0], **kw))]
+  cdof_rows = [None] * model.nv
+
+  for b in range(1, model.nbody):
+    parent = model.body_parentid[b]
+    mocapid = model.body_mocapid[b]
+    if mocapid >= 0:
+      xpos.append(data.mocap_pos[..., mocapid, :].to(qpos.dtype))
+      xquat.append(data.mocap_quat[..., mocapid, :].to(qpos.dtype))
+      continue
+
+    # Frame from the parent.
+    pos, quat = tmath.pose_mul(xpos[parent], xquat[parent],
+                               const(model.body_pos[b]),
+                               const(model.body_quat[b]))
+    jadr, jnum = model.body_jntadr[b], model.body_jntnum[b]
+    for k in range(jnum):
+      ji = jadr + k
+      jtype = JointType(model.jnt_type[ji])
+      dadr = model.jnt_dofadr[ji]
+      jpos = const(model.jnt_pos[ji])
+      if jtype == JointType.FREE:
+        # Translational dofs along the world axes; rotational dofs along
+        # the body axes, anchored at the body origin.
+        pos, q_j = _joint_local_qpos(model, ji, qpos)
+        quat = tmath.quat_normalize(q_j)
+        for a in range(3):
+          cdof_rows[dadr + a] = row(zero3, eye[a])
+        for a in range(3):
+          axis_w = tmath.quat_rotate(quat, eye[a])
+          cdof_rows[dadr + 3 + a] = row(axis_w,
+                                        tmath.cross(axis_w, -pos))
+      elif jtype == JointType.BALL:
+        q_j = tmath.quat_normalize(_joint_local_qpos(model, ji, qpos)[1])
+        anchor = tmath.transform_point(pos, quat, jpos)
+        quat = tmath.quat_mul(quat, q_j)
+        pos = anchor - tmath.quat_rotate(quat, jpos)
+        for a in range(3):
+          axis_w = tmath.quat_rotate(quat, eye[a])
+          cdof_rows[dadr + a] = row(axis_w,
+                                    tmath.cross(axis_w, -anchor))
+      else:
+        q_j = _joint_local_qpos(model, ji, qpos)[0]
+        axis_local = const(model.jnt_axis[ji])
+        axis_w = tmath.quat_rotate(quat, axis_local)
+        if jtype == JointType.HINGE:
+          anchor = tmath.transform_point(pos, quat, jpos)
+          quat = tmath.quat_mul(quat,
+                                tmath.axis_angle_to_quat(axis_local, q_j))
+          pos = anchor - tmath.quat_rotate(quat, jpos)
+          cdof_rows[dadr] = row(axis_w, tmath.cross(axis_w, -anchor))
+        else:  # SLIDE
+          pos = pos + axis_w * q_j[..., None]
+          cdof_rows[dadr] = row(zero3, axis_w)
+    xpos.append(pos)
+    xquat.append(quat)
+
+  cdof = (torch.stack(cdof_rows, -2) if model.nv
+          else qpos.new_zeros(bshape + (0, 6)))
+  return torch.stack(xpos, -2), torch.stack(xquat, -2), cdof
+
+
 def _dof_qposadr(model: Model) -> np.ndarray:
   """qpos address per dof (valid for scalar-joint dofs; 0 otherwise)."""
   out = np.zeros(model.nv, dtype=np.int64)
@@ -298,3 +417,49 @@ def ancestor_mask(model: Model) -> np.ndarray:
         mask[b, adr:adr + model.body_dofnum[i]] = 1.0
       i = model.body_parentid[i]
   return mask
+
+
+def fwd_velocity_kinematics(model: Model, data: Data) -> Data:
+  """Body spatial velocities (cvel, (..., nbody, 6)) and tendon
+  velocities: cvel[b] is the sum of b's ancestor dofs' cdof * qvel, one
+  contraction with the ancestor mask."""
+  mask = model.const('ancestor_mask', lambda: ancestor_mask(model),
+                     data.cdof.dtype)
+  cvel = torch.einsum('bv,...vk->...bk', mask,
+                      data.cdof * data.qvel[..., None])
+  if model.ntendon:
+    ten_velocity = data.qvel @ model.tendon_moment.T
+  else:
+    ten_velocity = data.qvel.new_zeros(data.qvel.shape[:-1] + (0,))
+  return data.replace(cvel=cvel, ten_velocity=ten_velocity)
+
+
+def point_velocity(data: Data, bodyid_cvel: torch.Tensor,
+                   point: torch.Tensor):
+  """Linear and angular world velocity of a body-fixed point, given the
+  body's cvel row (..., 6) and the point (..., 3): (linvel, angvel), the
+  [lin, ang] order of the reference's get_site_velocity."""
+  del data
+  ang = bodyid_cvel[..., :3]
+  lin = bodyid_cvel[..., 3:] + tmath.cross(ang, point)
+  return lin, ang
+
+
+def jac_point(model: Model, data: Data, bodyid: int, point: torch.Tensor):
+  """Translational and rotational Jacobians (..., 3, nv) of a world point
+  (..., 3) fixed on body `bodyid`."""
+  mask = model.const('ancestor_mask', lambda: ancestor_mask(model),
+                     data.cdof.dtype)[bodyid]             # (nv,)
+  ang = data.cdof[..., :3]                                # (..., nv, 3)
+  lin = data.cdof[..., 3:] + tmath.cross(ang, point[..., None, :])
+  jacp = (lin * mask[:, None]).transpose(-1, -2)
+  jacr = (ang * mask[:, None]).transpose(-1, -2)
+  return jacp, jacr
+
+
+def site_jacobian(model: Model, data: Data, site_ids) -> torch.Tensor:
+  """Stacked position Jacobians of the sites `site_ids` (static list):
+  (..., 3 * len(site_ids), nv)."""
+  return torch.cat([jac_point(model, data, model.site_bodyid[sid],
+                              data.site_xpos[..., sid, :])[0]
+                    for sid in site_ids], dim=-2)

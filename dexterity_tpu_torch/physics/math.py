@@ -42,6 +42,12 @@ def quat_inv(q: torch.Tensor) -> torch.Tensor:
   return quat_conj(q)
 
 
+def cross(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+  """Cross product over the last axis, broadcasting the leading ones
+  (jnp.cross's contract)."""
+  return torch.cross(*torch.broadcast_tensors(u, v), dim=-1)
+
+
 def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
   """Rotates vector v by unit quaternion q (R(q) @ v)."""
   w = q[..., :1]

@@ -2,8 +2,9 @@
 integration (port of dexterity_tpu/physics/smooth.py).
 
 Plane functions (`*_planes`) take component planes with the batch
-trailing, as in the JAX package; `actuation`, `passive`, `integrate_pos`
-and `euler_from_smooth` take batch-leading Data.  The tree reductions are
+trailing, as in the JAX package; the others (`crb`, `rne`,
+`xfrc_accumulate`, `actuation`, `passive`, `integrate_pos`, `euler`)
+take a Data with any leading batch shape.  The tree reductions are
 contractions with static masks.
 """
 
@@ -12,11 +13,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dexterity_tpu_torch.core.types import (ActuatorTrn, BiasType, Data,
-                                            JointType, Model)
+from dexterity_tpu_torch.core.types import (DOF_WIDTH, ActuatorTrn,
+                                            BiasType, Data, JointType, Model)
 from dexterity_tpu_torch.physics import kinematics
 from dexterity_tpu_torch.physics import linalg_cuda
 from dexterity_tpu_torch.physics import math as tmath
+from dexterity_tpu_torch.physics import tree
 
 
 def _ancestor(model: Model, dtype) -> torch.Tensor:
@@ -50,6 +52,11 @@ def crb(model: Model, data: Data) -> Data:
   m_ang = torch.einsum('...biv,...bij,...bjw->...vw', jang, iw, jang)
   m_lin = torch.einsum('b,...biv,...biw->...vw', model.body_mass, jlin, jlin)
   return data.replace(qM=m_ang + m_lin + torch.diag(model.dof_armature))
+
+
+def solve_m(data: Data, vec: torch.Tensor) -> torch.Tensor:
+  """Solves M x = vec (K3)."""
+  return linalg_cuda.cholesky_solve(data.qM, vec)
 
 
 # ---------------------------------------------------------------------------
@@ -245,8 +252,150 @@ def xfrc_planes(model: Model, xipos3: torch.Tensor, cdof6: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Bias forces (coriolis + centrifugal + gravity): RNEA in Plücker coords
+# ---------------------------------------------------------------------------
+
+
+def _motion_cross(v: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+  """Spatial cross product of motion vectors (..., 6): v ×ₘ m."""
+  vang, vlin = v[..., :3], v[..., 3:]
+  mang, mlin = m[..., :3], m[..., 3:]
+  return torch.cat([tmath.cross(vang, mang),
+                    tmath.cross(vang, mlin) + tmath.cross(vlin, mang)], -1)
+
+
+def _inertia_mul(mass, com, iw, motion):
+  """Spatial inertia about the world origin applied to a motion vector,
+  over any leading axes (it is also the JAX package's per-body
+  `_inertia_mul_batch`; `_force_cross` likewise serves as
+  `_force_cross_batch`).
+
+  Args:
+    mass: (...) body mass.
+    com: (..., 3) world COM.
+    iw: (..., 3, 3) world rotational inertia about the COM.
+    motion: (..., 6) [ang, lin0].
+
+  Returns:
+    (..., 6) force vector [torque-about-origin, force].
+  """
+  ang, lin0 = motion[..., :3], motion[..., 3:]
+  h = mass[..., None] * (lin0 + tmath.cross(ang, com))   # linear momentum
+  l0 = (iw @ ang[..., None])[..., 0] + tmath.cross(com, h)
+  return torch.cat([l0, h], -1)
+
+
+def _force_cross(v: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+  """Motion ×* force, the dual cross product, on (..., 6) vectors."""
+  vang, vlin = v[..., :3], v[..., 3:]
+  tau0, force = f[..., :3], f[..., 3:]
+  return torch.cat([tmath.cross(vang, tau0) + tmath.cross(vlin, force),
+                    tmath.cross(vang, force)], -1)
+
+
+def _dof_width(model: Model, ji: int) -> int:
+  return DOF_WIDTH[JointType(model.jnt_type[ji])]
+
+
+def rne(model: Model, data: Data) -> Data:
+  """qfrc_bias = C(q, v)·v + G(q), by Newton–Euler with qacc = 0; also
+  sets cvel.
+
+  Velocities and bias accelerations by two ancestor-mask contractions
+  when every body has at most one joint; the general body-at-a-time
+  recursion otherwise."""
+  dtype = data.qpos.dtype
+  iw = tmath.inertia_world(model.body_mass, model.body_inertia.to(dtype),
+                           data.ximat)
+  if tree.tree_tables(model).single_jointed:
+    cvel, cacc = _vel_acc_matmul(model, data, dtype)
+  else:
+    cvel, cacc = _vel_acc_unrolled(model, data, dtype)
+
+  # Per-body bias force f = I a + v ×* (I v).
+  mass = model.body_mass.to(dtype)
+  iv = _inertia_mul(mass, data.xipos, iw, cvel)
+  ia = _inertia_mul(mass, data.xipos, iw, cacc)
+  forces = ia + _force_cross(cvel, iv)
+
+  # Backward pass as a mask contraction: qfrc_bias_i = Σ_b mask[b, i]
+  # (cdof_i · f_b).
+  mask = _ancestor(model, dtype)
+  qfrc_bias = (data.cdof * torch.einsum('bv,...bk->...vk', mask,
+                                        forces)).sum(-1)
+  return data.replace(qfrc_bias=qfrc_bias, cvel=cvel)
+
+
+def _vel_acc_matmul(model: Model, data: Data, dtype):
+  """Velocity and bias acceleration as two ancestor-mask contractions.
+
+  cvel[b] = Σ_{dofs i on the path to b} cdof_i qvel_i.  The per-dof bias
+  term τ_i = (v ×ₘ cdof_i) qvel_i takes as v the dof's body velocity
+  (self terms cancel), or the parent's (world: zero) for a free joint's
+  translations; cacc is then a second contraction over τ."""
+  mask = _ancestor(model, dtype)
+  cvel = torch.einsum('bv,...vk->...bk', mask,
+                      data.cdof * data.qvel[..., None])
+  ref_vel = cvel[..., model.index('dof_bodyid', model.dof_bodyid), :]
+  trans_free = _trans_free_np(model)
+  if trans_free.any():
+    keep = model.const('not_trans_free', lambda: ~trans_free, torch.bool)
+    ref_vel = ref_vel * keep[:, None]
+  tau = _motion_cross(ref_vel, data.cdof) * data.qvel[..., None]
+  grav = torch.cat([torch.zeros(3, dtype=dtype, device=data.qpos.device),
+                    -model.opt.gravity.to(dtype)])
+  cacc = grav + torch.einsum('bv,...vk->...bk', mask, tau)
+  return cvel, cacc
+
+
+def _vel_acc_unrolled(model: Model, data: Data, dtype):
+  """General body-at-a-time sweep (multi-joint bodies)."""
+  bshape = data.qpos.shape[:-1]
+  zero = data.qpos.new_zeros(bshape + (6,))
+  grav = torch.cat([torch.zeros(3, dtype=dtype, device=data.qpos.device),
+                    -model.opt.gravity.to(dtype)])
+  cvel, cacc = [zero], [zero + grav]
+  cdof, qvel = data.cdof, data.qvel
+  for b in range(1, model.nbody):
+    parent = model.body_parentid[b]
+    vel, acc = cvel[parent], cacc[parent]
+    jadr, jnum = model.body_jntadr[b], model.body_jntnum[b]
+    for k in range(jnum):
+      ji = jadr + k
+      dadr = model.jnt_dofadr[ji]
+      jtype = JointType(model.jnt_type[ji])
+      if jtype in (JointType.HINGE, JointType.SLIDE):
+        cdof_d, qd = cdof[..., dadr, :], qvel[..., dadr, None]
+        acc = acc + _motion_cross(vel, cdof_d) * qd
+        vel = vel + cdof_d * qd
+      else:
+        width = _dof_width(model, ji)
+        vel_full = vel + sum(cdof[..., d, :] * qvel[..., d, None]
+                             for d in range(dadr, dadr + width))
+        rot_start = dadr + 3 if jtype == JointType.FREE else dadr
+        for d in range(rot_start, dadr + width):
+          acc = acc + (_motion_cross(vel_full, cdof[..., d, :])
+                       * qvel[..., d, None])
+        vel = vel_full
+    cvel.append(vel)
+    cacc.append(acc)
+  return torch.stack(cvel, -2), torch.stack(cacc, -2)
+
+
+# ---------------------------------------------------------------------------
 # Applied / passive / actuator forces (batch-leading)
 # ---------------------------------------------------------------------------
+
+
+def xfrc_accumulate(model: Model, data: Data) -> torch.Tensor:
+  """Projects xfrc_applied (world force/torque at each body's COM,
+  (..., nbody, 6)) into joint space, (..., nv)."""
+  dtype = data.qpos.dtype
+  force = data.xfrc_applied[..., :3].to(dtype)
+  torque = data.xfrc_applied[..., 3:].to(dtype)
+  fvec = torch.cat([torque + tmath.cross(data.xipos, force), force], -1)
+  return torch.einsum('...vk,...bk,bv->...v', data.cdof, fvec,
+                      _ancestor(model, dtype))
 
 
 def passive(model: Model, data: Data) -> Data:
@@ -355,6 +504,14 @@ def integrate_pos(model: Model, qpos: torch.Tensor, qvel: torch.Tensor,
     out[..., qadr + 3:qadr + 7] = tmath.quat_integrate(
         qpos[..., qadr + 3:qadr + 7], qvel[..., dadr + 3:dadr + 6], dt)
   return out
+
+
+def euler(model: Model, data: Data) -> Data:
+  """Semi-implicit Euler with implicit joint damping (MuJoCo 'Euler'),
+  from the smooth forces of a forward pass (`euler_from_smooth`)."""
+  qfrc_smooth = (data.qfrc_passive + data.qfrc_actuator + data.qfrc_applied
+                 + xfrc_accumulate(model, data) - data.qfrc_bias)
+  return euler_from_smooth(model, data, qfrc_smooth)
 
 
 def euler_from_smooth(model: Model, data: Data,

@@ -1,21 +1,93 @@
-"""Batched physics substeps (port of the hot path of
+"""Forward dynamics and the physics step (port of
 dexterity_tpu/physics/step.py).
 
-`step_hot_b` runs one substep for a batch-leading Data: the tree sweeps
-(FK, frames, inertias, CRB, RNE) run on batch-minor planes (c, n, B), as in
-the JAX package; collision, actuation, the constraint solve and the
-integration then run batch-leading.  `step_n_b` runs n substeps as a
-Python loop (the JAX package's lax.scan).
+`forward(model, data)` recomputes every derived quantity from (qpos, qvel,
+ctrl, mocap); `step` is forward plus Euler integration.  Both run the AoS
+pipeline: FK, CRB, the narrow phase into data.contact, RNE, the
+constraint solve from data.contact.
+
+`step_hot_b` runs one substep for a batch-leading Data on the hot path:
+the tree sweeps (FK, frames, inertias, CRB, RNE) run on batch-minor
+planes (c, n, B), as in the JAX package; collision, actuation, the
+constraint solve and the integration then run batch-leading.  `step_n_b`
+runs n substeps as a Python loop (the JAX package's lax.scan) and then
+refreshes the derived quantities the caller asks for.
+
+The per-environment functions (`forward`, `step`, `step_hot`, `step_n`,
+`fwd_*`) take a Data with any leading batch shape, none for one
+environment; they run on it flattened to one batch axis.
 """
 
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 
+from dexterity_tpu_torch.core import types
 from dexterity_tpu_torch.core.types import Data, Model
 from dexterity_tpu_torch.physics import constraint as constraint_mod
 from dexterity_tpu_torch.physics import kinematics, smooth
-from dexterity_tpu_torch.physics.collision import primitives
+from dexterity_tpu_torch.physics.collision import narrowphase, primitives
+
+
+def _one_batch_axis(fn):
+  """fn(model, data, ...) on data flattened to one leading batch axis
+  (an axis of 1 for a lone environment), the result restored to data's
+  batch shape."""
+  @functools.wraps(fn)
+  def wrapped(model: Model, data: Data, *args, **kwargs) -> Data:
+    bshape = data.qpos.shape[:-1]
+    nb = len(bshape)
+    if nb == 1:
+      return fn(model, data, *args, **kwargs)
+    flat = (math.prod(bshape),)
+    out = fn(model, types.map_data(
+        data, lambda x: x.reshape(flat + x.shape[nb:])), *args, **kwargs)
+    return types.map_data(out, lambda x: x.reshape(bshape + x.shape[1:]))
+  return wrapped
+
+
+@_one_batch_axis
+def fwd_position(model: Model, data: Data) -> Data:
+  """Frames, dof axes and tendon lengths, the joint-space inertia, and the
+  narrow phase into data.contact."""
+  data = kinematics.fwd_position(model, data)
+  data = smooth.crb(model, data)
+  return narrowphase.collision(model, data)
+
+
+@_one_batch_axis
+def fwd_velocity(model: Model, data: Data) -> Data:
+  """Body and tendon velocities, actuator and passive forces, the bias
+  force."""
+  data = kinematics.fwd_velocity_kinematics(model, data)
+  data = smooth.actuation(model, data)
+  data = smooth.passive(model, data)
+  return smooth.rne(model, data)
+
+
+@_one_batch_axis
+def fwd_acceleration(model: Model, data: Data) -> Data:
+  """The constraint solve on the smooth force (contacts from
+  data.contact); qacc_smooth is not computed, as in the JAX package."""
+  qfrc_smooth = (data.qfrc_passive + data.qfrc_actuator + data.qfrc_applied
+                 + smooth.xfrc_accumulate(model, data) - data.qfrc_bias)
+  return constraint_mod.solve(model, data, qfrc_smooth)
+
+
+@_one_batch_axis
+def forward(model: Model, data: Data) -> Data:
+  data = fwd_position(model, data)
+  data = fwd_velocity(model, data)
+  return fwd_acceleration(model, data)
+
+
+@_one_batch_axis
+def step(model: Model, data: Data) -> Data:
+  """forward, then semi-implicit Euler."""
+  return smooth.euler(model, forward(model, data))
 
 
 def _precompute_planes(model: Model, qpos, qvel, mocap_pos, mocap_quat):
@@ -59,8 +131,9 @@ def _batch_minor(x: torch.Tensor) -> torch.Tensor:
 
 def _finish_step(model: Model, data: Data, pre: dict,
                  selinfo=None) -> Data:
-  """Collision, actuation, constraint solve and integration for a
-  batch-leading Data, given the batch-minor planes of _precompute_planes."""
+  """Collision, actuation, constraint solve and integration for a Data
+  with one leading batch axis, given the batch-minor planes of
+  _precompute_planes."""
   dtype = data.qpos.dtype
   gpos = tuple(_major(p) for p in pre['gpos'])
   gmat = tuple(_major(p) for p in pre['gmat'])
@@ -90,10 +163,19 @@ def _planes_b(model: Model, data: Data) -> dict:
 
 
 def step_hot_b(model: Model, data: Data, selinfo=None) -> Data:
-  """One physics substep for a batch-leading Data (leading batch axis on
-  every field).  Derived fields other than the integrator state and the
+  """One physics substep for a Data with one leading batch axis on every
+  field.  Derived fields other than the integrator state and the
   dynamics outputs are left stale."""
   return _finish_step(model, data, _planes_b(model, data), selinfo=selinfo)
+
+
+@_one_batch_axis
+def step_hot(model: Model, data: Data) -> Data:
+  """One physics substep through the plane-form pipeline (step_hot_b):
+  `step`'s semantics up to float reassociation, with no AoS frames or
+  contacts materialised; derived fields other than the integrator state
+  and the dynamics outputs are left stale."""
+  return step_hot_b(model, data)
 
 
 # Integrator state plus the per-dof/per-actuator dynamics outputs a caller
@@ -108,9 +190,17 @@ _STEP_CARRY = ('time', 'qpos', 'qvel', 'qacc', 'qacc_smooth', 'qfrc_bias',
 _STEP_CARRY_MIN = ('time', 'qpos', 'qvel', 'qacc')
 
 
+@_one_batch_axis
+def step_n(model: Model, data: Data, n: int, refresh: str = 'full') -> Data:
+  """n physics substeps (one control step) with the full carry and a
+  midphase selection every substep, then the refresh of step_n_b."""
+  return step_n_b(model, data, n, refresh=refresh)
+
+
 def step_n_b(model: Model, data: Data, n: int, refresh: str = 'full',
              midphase: str = 'per_substep', carry: str = 'full') -> Data:
-  """n substeps of step_hot_b (one control step).
+  """n substeps of step_hot_b (one control step) for a Data with one
+  leading batch axis.
 
   midphase='per_call' selects the midphase candidate slots once, from the
   first substep's geom frames (primitives.midphase_selinfo), and every
@@ -121,11 +211,16 @@ def step_n_b(model: Model, data: Data, n: int, refresh: str = 'full',
   substep; the other fields keep their values from before the call.
   carry='full' also carries the dynamics outputs.
 
-  refresh: only 'none' (the integrator state is returned as is) is
-  ported; 'position' and 'full' come with the refresh kinematics.
+  refresh, once after the substeps (MuJoCo's mj_step1 order), so that
+  observables and rewards read quantities of the new qpos:
+    'full'      frames (kinematics.fwd_position), the narrow phase into
+                data.contact, body and tendon velocities;
+    'position'  frames only;
+    'none'      the integrator state as it is.
+  qM is not refreshed.
   """
-  if refresh != 'none':
-    raise NotImplementedError(f"refresh={refresh!r}: only 'none' is ported")
+  if refresh not in ('none', 'position', 'full'):
+    raise ValueError(f'refresh={refresh!r}')
   if midphase not in ('per_call', 'per_substep'):
     raise ValueError(f'midphase={midphase!r}')
   if carry not in ('minimal', 'full'):
@@ -152,4 +247,10 @@ def step_n_b(model: Model, data: Data, n: int, refresh: str = 'full',
       start = 1
   for _ in range(start, n):
     cur = advance(step_hot_b(model, cur, selinfo=selinfo))
-  return cur
+  if refresh == 'none':
+    return cur
+  cur = kinematics.fwd_position(model, cur)
+  if refresh == 'position':
+    return cur
+  cur = narrowphase.collision(model, cur)
+  return kinematics.fwd_velocity_kinematics(model, cur)

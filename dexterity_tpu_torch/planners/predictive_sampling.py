@@ -3,7 +3,8 @@ dexterity_tpu/planners/predictive_sampling.py).
 
 One `solve` samples N candidate action sequences around the nominal plan
 (spline-smoothed Gaussian noise, first candidate = nominal), rolls each
-out H control steps through the batched physics (`step.step_n_b`), scores
+out H control steps through the batched physics (`step.step_n_b`, or
+with batched_rollouts=False the per-environment `step.step_n`), scores
 them by task reward, keeps the best (or an MPPI-weighted average) as the
 new nominal, and emits its first action; CEM-style iterations repeat this
 with shrinking noise.  `solve_batch` flattens G streams' populations into
@@ -19,7 +20,7 @@ caller passes `device='cpu'`.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -60,8 +61,9 @@ class PredictiveSamplingConfig:
   # One midphase selection per control step (from its first substep),
   # reused by every substep of the step.
   plan_midphase_per_control_step: bool = True
-  # Roll the population through the batch-minor substep (step_n_b).  The
-  # per-candidate rollout (False) needs the per-env step, not ported yet.
+  # Roll the population through the batch-minor substep (step_n_b) with
+  # the minimal carry and the hoisted midphase; False rolls each candidate
+  # out with rollout_return (step_n: full carry, midphase every substep).
   batched_rollouts: bool = True
 
 
@@ -81,17 +83,6 @@ class _RewardState:
     self.goal_distance = goal_distance
 
 
-def _map_data(data: T.Data, fn: Callable) -> T.Data:
-  """Applies fn to every tensor of a Data, its contact slots included."""
-  contact = data.contact.replace(
-      **{f.name: fn(getattr(data.contact, f.name))
-         for f in dataclasses.fields(data.contact)})
-  return data.replace(
-      contact=contact,
-      **{f.name: fn(getattr(data, f.name)) for f in dataclasses.fields(data)
-         if f.name != 'contact'})
-
-
 class PredictiveSampling:
   """Zero-order sampling MPC over a GoalTask."""
 
@@ -105,10 +96,6 @@ class PredictiveSampling:
       extra_reward_fn: optional (model, data, goals) -> (M,) planning
         shaping added to the task reward inside rollouts only.
     """
-    if not config.batched_rollouts:
-      raise NotImplementedError(
-          'batched_rollouts=False rolls each candidate out with '
-          'rollout_return, which needs the per-env step_n (not ported)')
     self.task = task
     self.config = config
     self.extra_reward_fn = extra_reward_fn
@@ -173,14 +160,62 @@ class PredictiveSampling:
       best = best.expand(streams).clone()
     return PlannerState(nominal=nominal, best_return=best)
 
+  def _reward(self, d, goals, alive):
+    """One control step's rewards and the alive mask after it: rewards
+    stop accruing once the task's rollout failure fires, and the step
+    where it first fires costs `failure_penalty`."""
+    model, task = self.model, self.task
+    gen = task.goal_generator
+    dist = gen.goal_distance(goals, gen.current_state(model, d))
+    r = task.get_reward(model, d, _RewardState(goals, dist))
+    if self.extra_reward_fn is not None:
+      r = r + self.extra_reward_fn(model, d, goals)
+    alive_after = alive & ~task.rollout_failure(model, d)
+    r = torch.where(alive_after, r,
+                    torch.where(alive,
+                                r.new_full((), -self.config.failure_penalty),
+                                r.new_zeros(())))
+    return r, alive_after
+
+  def _set_ctrl(self, d, action):
+    ctrl = d.ctrl.clone()
+    ctrl[..., self._act_idx] = torch.clamp(action, self._lo, self._hi)
+    return d.replace(ctrl=ctrl)
+
+  def rollout_return(self, data: T.Data, goal: torch.Tensor,
+                     actions: torch.Tensor) -> torch.Tensor:
+    """Return of action sequences (..., H, nu) from data and goals with
+    the same leading shape (none for one sequence), -> (...).  Each
+    control step runs the per-environment `step.step_n` with the task's
+    plan_refresh: the full carry and a midphase selection every substep.
+
+    `alive` starts True, as in the reference's per-environment
+    rollout_return, so a start state whose qpos is NaN accrues its
+    (NaN) rewards here, where rollout_returns_flat scores it 0: the two
+    paths differ on such a row, in the reference as here."""
+    alive = torch.ones(actions.shape[:-2], dtype=torch.bool,
+                       device=actions.device)
+    d = data
+    total = 0.0
+    for action in actions.unbind(-2):
+      d = physics_step.step_n(self.model, self._set_ctrl(d, action),
+                              self.n_plan_substeps,
+                              refresh=self.task.plan_refresh)
+      r, alive = self._reward(d, goal, alive)
+      total = total + r
+    return total
+
+  def _broadcast(self, data: T.Data, goal: torch.Tensor, n: int):
+    """One environment's data and goal repeated for n candidates."""
+    bdata = T.map_data(
+        data, lambda x: x.unsqueeze(0).expand((n,) + x.shape).contiguous())
+    return bdata, goal.unsqueeze(0).expand((n,) + goal.shape)
+
   def rollout_returns_batched(self, data: T.Data, goal: torch.Tensor,
                               actions: torch.Tensor) -> torch.Tensor:
     """Returns of N candidate sequences (N, H, nu) -> (N,) from one
     environment's data and goal."""
-    n = actions.shape[0]
-    bdata = _map_data(
-        data, lambda x: x.unsqueeze(0).expand((n,) + x.shape).contiguous())
-    goals = goal.unsqueeze(0).expand((n,) + goal.shape)
+    bdata, goals = self._broadcast(data, goal, actions.shape[0])
     return self.rollout_returns_flat(bdata, goals, actions)
 
   def rollout_returns_flat(self, bdata: T.Data, goals: torch.Tensor,
@@ -188,11 +223,12 @@ class PredictiveSampling:
     """Returns with per-candidate data and goals (leading axis M on
     everything): bdata (M, ...), goals (M, 4), actions (M, H, nu) ->
     (M,).  Rewards stop accruing once the task's rollout failure fires,
-    and the step where it first fires costs `failure_penalty`."""
+    and the step where it first fires costs `failure_penalty`.  A row
+    whose start qpos is NaN is dead from the start and returns 0, as in
+    the reference."""
     model = self.model
     cfg = self.config
     task = self.task
-    gen = task.goal_generator
     acts_t = actions.transpose(0, 1)                     # (H, M, nu)
     # Position-level planning rewards never read the dynamics outputs:
     # carry only the integrator state, rebuilding each control step's Data
@@ -202,27 +238,17 @@ class PredictiveSampling:
     midphase = ('per_call' if cfg.plan_midphase_per_control_step
                 else 'per_substep')
     carry = ({f: getattr(bdata, f) for f in fields} if minimal else bdata)
-    alive = torch.ones(bdata.qpos.shape[:1], dtype=torch.bool,
-                       device=bdata.qpos.device)
+    # A NaN start row is dead from step 0 (NaN != NaN).
+    alive = bdata.qpos[:, 0] == bdata.qpos[:, 0]
     rewards = []
     for action in acts_t:
       d = bdata.replace(**carry) if minimal else carry
-      ctrl = d.ctrl.clone()
-      ctrl[:, self._act_idx] = torch.clamp(action, self._lo, self._hi)
       d = physics_step.step_n_b(
-          model, d.replace(ctrl=ctrl), self.n_plan_substeps,
+          model, self._set_ctrl(d, action), self.n_plan_substeps,
           refresh=task.plan_refresh, midphase=midphase,
           carry='minimal' if minimal else 'full')
-      dist = gen.goal_distance(goals, gen.current_state(model, d))
-      r = task.get_reward(model, d, _RewardState(goals, dist))
-      if self.extra_reward_fn is not None:
-        r = r + self.extra_reward_fn(model, d, goals)
-      alive_after = alive & ~task.rollout_failure(model, d)
-      r = torch.where(alive_after, r,
-                      torch.where(alive, r.new_full((), -cfg.failure_penalty),
-                                  r.new_zeros(())))
+      r, alive = self._reward(d, goals, alive)
       rewards.append(r)
-      alive = alive_after
       carry = {f: getattr(d, f) for f in fields} if minimal else d
     return torch.stack(rewards).sum(0)
 
@@ -245,7 +271,11 @@ class PredictiveSampling:
     noise = self._sample_noise(gen, cfg.num_samples - 1) * noise_mult
     candidates = torch.cat([nominal[None], nominal[None] + noise])
     candidates = torch.clamp(candidates, self._lo, self._hi)
-    returns = self.rollout_returns_batched(data, goal, candidates)
+    if cfg.batched_rollouts:
+      returns = self.rollout_returns_batched(data, goal, candidates)
+    else:
+      returns = self.rollout_return(
+          *self._broadcast(data, goal, candidates.shape[0]), candidates)
     best = torch.argmax(returns)
     if cfg.temperature > 0:
       # MPPI-style weighted plan average, normalised by the return spread.
@@ -290,7 +320,7 @@ class PredictiveSampling:
     mult = 1.0
     # The flattened rollout initial state and goals are the same in every
     # iteration: built once.
-    bdata = _map_data(data_b, lambda x: x.unsqueeze(1).expand(
+    bdata = T.map_data(data_b, lambda x: x.unsqueeze(1).expand(
         (g, n) + x.shape[1:]).reshape((g * n,) + x.shape[1:]))
     goals_f = goals.unsqueeze(1).expand((g, n) + goals.shape[1:]).reshape(
         (g * n,) + goals.shape[1:])

@@ -380,3 +380,82 @@ def test_tree_fk_matches_plain_on_card(dtype, b):
     scale = max(ref[key].abs().max().item(), 1.0)
     err = (out[key] - ref[key]).abs().max().item()
     assert err <= rel * scale, (key, err, scale)
+
+
+def _env_inputs(model, b, seed):
+  """Seeded reorient states on `model`'s device: the cube at the spawn
+  workspace centre with a random orientation, the hand at qpos0, controls
+  in the middle of their ranges."""
+  from dexterity_tpu_torch.core import types
+  gen = torch.Generator().manual_seed(seed)
+  qpos = model.qpos0.double().cpu().expand(b, model.nq).clone()
+  free = [j for j in range(model.njnt)
+          if model.jnt_type[j] == int(types.JointType.FREE)][0]
+  qa = model.jnt_qposadr[free]
+  qpos[:, qa:qa + 3] = torch.tensor([0.0, -0.13, 0.16], dtype=torch.float64)
+  q = torch.randn(b, 4, generator=gen, dtype=torch.float64)
+  qpos[:, qa + 3:qa + 7] = q / q.norm(dim=1, keepdim=True)
+  ctrl = model.actuator_ctrlrange.double().cpu().mean(-1).expand(b, -1)
+  return types.make_data(model, (b,)).replace(
+      qpos=qpos.to(model.device, model.dtype),
+      ctrl=ctrl.to(model.device, model.dtype))
+
+
+@pytest.mark.cuda
+def test_forward_and_step_n_on_card_match_cpu_float64():
+  """forward and one control step of step_n(refresh='full') on the
+  environment model at B = 4 in float32, against the port on the CPU in
+  float64 (PERF.md §2's limits: qpos 1e-4, qvel 1e-2, frames 1e-4 of
+  their max-abs); K3 launched 8 times in forward and 45 in the step."""
+  _cuda()
+  from dexterity_tpu_torch.physics import step
+  task = manipulation.build_task('reorient', 'state_dense')
+  model = task.compile(device='cuda')
+  cpu = task.compile(device='cpu', dtype=torch.float64)
+  n = task.n_substeps
+  data = _env_inputs(model, 4, 23)
+  LC.reset_launches()
+  fwd = step.forward(model, data)
+  torch.cuda.synchronize()
+  assert LC.launches['cholesky_solve'] == model.opt.solver_iterations == 8
+  out = step.step_n(model, fwd, n, refresh='full')
+  torch.cuda.synchronize()
+  assert LC.launches['cholesky_solve'] == 8 + n * (8 + 1)
+  assert sum(LC.launches.values()) == LC.launches['cholesky_solve']
+  ref_fwd = step.forward(cpu, _env_inputs(cpu, 4, 23))
+  ref = step.step_n(cpu, ref_fwd, n, refresh='full')
+  for f in ('xpos', 'geom_xpos', 'cdof', 'qM'):
+    want = getattr(ref_fwd, f)
+    err = (getattr(fwd, f).double().cpu() - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item(), (f, err)
+  assert bool(torch.isfinite(fwd.qacc).all())
+  assert (out.qpos.double().cpu() - ref.qpos).abs().max().item() < 1e-4
+  assert (out.qvel.double().cpu() - ref.qvel).abs().max().item() < 1e-2
+  for f in ('xpos', 'geom_xpos'):
+    want = getattr(ref, f)
+    err = (getattr(out, f).double().cpu() - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item(), (f, err)
+  assert out.contact.dist.shape == (4, ref.contact.dist.shape[-1])
+  assert bool(torch.isfinite(out.cvel).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_solve_m_unbatched_on_card(dtype):
+  """K3 through smooth.solve_m on one (30, 30) inertia without a batch
+  axis: the wrapper runs it as a batch of one."""
+  _cuda()
+  from dexterity_tpu_torch.core import types
+  from dexterity_tpu_torch.physics import smooth
+  h, g = _spd(29, 1, 30)
+  data = types.make_data(
+      manipulation.build_task('reorient', 'state_dense').compile(
+          device='cuda', dtype=dtype)).replace(
+              qM=torch.as_tensor(h[0], dtype=dtype, device='cuda'))
+  vec = torch.as_tensor(g[0], dtype=dtype, device='cuda')
+  LC.reset_launches()
+  x = smooth.solve_m(data, vec)
+  torch.cuda.synchronize()
+  assert LC.launches['cholesky_solve'] == 1
+  assert x.shape == (30,) and x.is_cuda
+  torch.testing.assert_close(x, LC.solve_plain(data.qM, vec), **_TOL[dtype])

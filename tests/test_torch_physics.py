@@ -1,9 +1,7 @@
 """Batched contact physics of the PyTorch port against the JAX package.
 
-Both sides compute from identical float64 inputs on the CPU: a batch of
-reorient states (seeded hand pose, cube at the spawn-workspace centre with
-a seeded orientation) advanced a few control steps by the port itself
-until the cube rests in contact, then carried to JAX as numpy arrays.
+Both sides compute from identical float64 inputs on the CPU: the seeded
+contact-rich reorient states of tests/torch_scene.py.
 Each module on the path is compared — tree planes, inertia/bias planes,
 midphase, narrow phase, constraint.solve — and then the slice as a whole:
 step_hot_b on the environment model and step_n_b on the planning model
@@ -17,7 +15,6 @@ import numpy as np
 import pytest
 import torch
 
-from dexterity_tpu import manipulation
 from dexterity_tpu.core import types as JT
 from dexterity_tpu.physics import constraint as jconstraint
 from dexterity_tpu.physics import kinematics as jkin
@@ -26,8 +23,6 @@ from dexterity_tpu.physics import smooth as jsmooth
 from dexterity_tpu.physics import step as jstep
 from dexterity_tpu.physics.collision import primitives as jprim
 from dexterity_tpu.physics.collision import soa as jsoa
-from dexterity_tpu.planners import common as jcommon
-from dexterity_tpu_torch import manipulation as pmanip
 from dexterity_tpu_torch.core import types as PT
 from dexterity_tpu_torch.physics import constraint as pconstraint
 from dexterity_tpu_torch.physics import kinematics as pkin
@@ -37,79 +32,19 @@ from dexterity_tpu_torch.physics import smooth as psmooth
 from dexterity_tpu_torch.physics import step as pstep
 from dexterity_tpu_torch.physics.collision import primitives as pprim
 from dexterity_tpu_torch.physics.collision import soa as psoa
-from dexterity_tpu_torch.planners import common as pcommon
 
-_PLAN = dict(solver_iterations=4, ls_iterations=6, solver_refactor_every=2,
-             plan_substeps=3, plan_midphase_cap=16, plan_contact_top_k=16,
-             plan_implicit_damping=True, plan_self_collision=False)
-_B = 4
-_F64 = dict(device='cpu', dtype=torch.float64)
-
-
-def _start_state(pm, rng, batch, band=0.3):
-  """Seeded reorient start: hand hinge joints within a band of their
-  ranges around 0, cube at the spawn-workspace centre, random quaternion."""
-  qpos = np.repeat(pm.qpos0.numpy()[None], batch, 0)
-  for j in range(pm.njnt):
-    if pm.jnt_type[j] == int(PT.JointType.HINGE) and pm.jnt_limited[j]:
-      lo, hi = pm.jnt_range[j].tolist()
-      mid = min(max(0.0, lo), hi)
-      a = pm.jnt_qposadr[j]
-      qpos[:, a] = np.clip(mid + band * (hi - lo) * rng.uniform(
-          -0.5, 0.5, batch), lo, hi)
-  free = [j for j in range(pm.njnt)
-          if pm.jnt_type[j] == int(PT.JointType.FREE)][0]
-  qa = pm.jnt_qposadr[free]
-  qpos[:, qa:qa + 3] = (0.0, -0.13, 0.16)
-  q = rng.normal(size=(batch, 4))
-  qpos[:, qa + 3:qa + 7] = q / np.linalg.norm(q, axis=1, keepdims=True)
-  return qpos
-
-
-def _ctrl(pm, rng, batch, band=0.3):
-  lo = pm.actuator_ctrlrange[:, 0].numpy()
-  hi = pm.actuator_ctrlrange[:, 1].numpy()
-  return lo + (hi - lo) * (0.5 + band * (rng.uniform(size=(batch,
-                                                             pm.nu)) - 0.5))
+from torch_scene import B as _B
+from torch_scene import build_scene
+from torch_scene import jdata as _jdata
+from torch_scene import models as _models
+from torch_scene import pair_inputs
+from torch_scene import pdata as _pdata
+from torch_scene import to_np as _np
 
 
 @pytest.fixture(scope='module')
 def scene():
-  jtask = manipulation.build_task('reorient', 'state_dense')
-  ptask = pmanip.build_task('reorient', 'state_dense')
-  jenv, penv = jtask.compile(), ptask.compile(**_F64)
-  jplan, _ = jcommon.reduced_planning_model(jtask, **_PLAN)
-  pplan, n = pcommon.reduced_planning_model(ptask, **_F64, **_PLAN)
-  rng = np.random.default_rng(1)
-  d = PT.make_data(pplan, (_B,)).replace(
-      qpos=torch.as_tensor(_start_state(pplan, rng, _B)))
-  for _ in range(8):
-    d = d.replace(ctrl=torch.as_tensor(_ctrl(pplan, rng, _B)))
-    d = pstep.step_n_b(pplan, d, n, refresh='none', midphase='per_call',
-                       carry='minimal')
-  state = {f: getattr(d, f).numpy() for f in ('time', 'qpos', 'qvel', 'qacc')}
-  state['ctrl'] = _ctrl(pplan, rng, _B)
-  return dict(jenv=jenv, penv=penv, jplan=jplan, pplan=pplan, state=state)
-
-
-def _pdata(pm, state):
-  return PT.make_data(pm, (_B,)).replace(
-      **{k: torch.as_tensor(v) for k, v in state.items()})
-
-
-def _jdata(jm, state):
-  d = JT.make_data(jm)
-  d = jax.tree_util.tree_map(
-      lambda x: jnp.broadcast_to(x[None], (_B,) + x.shape), d)
-  return d.replace(**{k: jnp.asarray(v) for k, v in state.items()})
-
-
-def _models(scene, which):
-  return scene['j' + which], scene['p' + which]
-
-
-def _np(x):
-  return x.detach().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+  return build_scene()
 
 
 def _planes(scene, which='env'):
@@ -311,8 +246,15 @@ def test_step_n_b_minimal_carry_keeps_other_fields(scene):
   torch.testing.assert_close(out.qpos, full.qpos, rtol=0, atol=0)
   assert out.qfrc_actuator is d.qfrc_actuator
   assert not torch.equal(full.qfrc_actuator, d.qfrc_actuator)
-  with pytest.raises(NotImplementedError):
-    pstep.step_n_b(pm, d, 1, refresh='position')
+  # refresh='position': the same state, with the frames of the new qpos.
+  pos = pstep.step_n_b(pm, d, 2, refresh='position', carry='minimal')
+  torch.testing.assert_close(pos.qpos, out.qpos, rtol=0, atol=0)
+  frames = pkin.fwd_position(pm, out)
+  for f in ('xpos', 'xquat', 'xipos', 'ximat', 'site_xpos', 'site_xmat',
+            'geom_xpos', 'geom_xmat', 'cdof', 'ten_length'):
+    torch.testing.assert_close(getattr(pos, f), getattr(frames, f), rtol=0,
+                               atol=0, msg=f)
+  assert not torch.equal(pos.xpos, d.xpos)
 
 
 def test_float32_step_tracks_float64(scene):
@@ -346,35 +288,6 @@ def test_fwd_position_matches_jax(scene):
                              atol=1e-12)
 
 
-def _soa_inputs(t1, t2, rng, n=64):
-  """Random poses and sizes per pair (as tests/test_collision_soa.py)."""
-  def pose():
-    q = rng.randn(4)
-    w, x, y, z = q / np.linalg.norm(q)
-    mat = np.array([
-        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
-        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
-        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]])
-    return rng.uniform(-0.05, 0.05, 3), mat
-
-  def size(t):
-    if t == JT.GeomType.PLANE:
-      return np.array([1.0, 1.0, 0.1])
-    if t == JT.GeomType.SPHERE:
-      return np.array([rng.uniform(0.02, 0.06), 0, 0])
-    if t == JT.GeomType.CAPSULE:
-      return np.array([rng.uniform(0.01, 0.03), rng.uniform(0.02, 0.05), 0])
-    return rng.uniform(0.02, 0.06, 3)
-
-  cols = [[] for _ in range(6)]
-  for _ in range(n):
-    p1, m1 = (np.zeros(3), np.eye(3)) if t1 == JT.GeomType.PLANE else pose()
-    p2, m2 = pose()
-    for c, v in zip(cols, (p1, m1, size(t1), p2, m2, size(t2))):
-      c.append(v)
-  return [np.asarray(c) for c in cols]
-
-
 @pytest.mark.parametrize('tpair', sorted(
     (int(a), int(b)) for a, b in jsoa.KERNELS))
 def test_soa_pair_kernels_match_jax(tpair):
@@ -384,7 +297,7 @@ def test_soa_pair_kernels_match_jax(tpair):
   jfn, jk = jsoa.KERNELS[(t1, t2)]
   pfn, pk = psoa.KERNELS[(PT.GeomType(tpair[0]), PT.GeomType(tpair[1]))]
   assert pk == jk
-  p1, m1, s1, p2, m2, s2 = _soa_inputs(t1, t2, np.random.RandomState(
+  p1, m1, s1, p2, m2, s2 = pair_inputs(t1, t2, np.random.RandomState(
       tpair[0] * 10 + tpair[1]))
   jd, jp, jn = jax.jit(jfn)(
       jsoa.vec3(jnp.asarray(p1)), jsoa.mat3(jnp.asarray(m1)),

@@ -321,10 +321,18 @@ def test_sample_noise_is_spline_smoothed(scene):
       scene['ptask'], pps.PredictiveSamplingConfig(horizon=3, num_knots=0),
       device='cpu', dtype=torch.float64)._sample_noise(gen, 2)
   assert white.shape == (2, 3, pp.nu)
-  with pytest.raises(NotImplementedError, match='rollout_return'):
-    pps.PredictiveSampling(
-        scene['ptask'], pps.PredictiveSamplingConfig(batched_rollouts=False),
-        device='cpu', dtype=torch.float64)
+  # batched_rollouts=False builds and solves (per-candidate rollouts).
+  per_cand = pps.PredictiveSampling(
+      scene['ptask'], pps.PredictiveSamplingConfig(
+          batched_rollouts=False, **_CFG), device='cpu', dtype=torch.float64)
+  one = {k: v[:1] for k, v in scene['state'].items()}
+  data = PT.make_data(per_cand.model).replace(
+      **{k: torch.as_tensor(v[0]) for k, v in one.items()})
+  action, st = per_cand.solve(data, torch.as_tensor(scene['goals'][0]),
+                              per_cand.init_state(), gen)
+  assert action.shape == (pp.nu,) and st.nominal.shape == (_H, pp.nu)
+  assert bool(torch.isfinite(action).all())
+  assert bool(torch.isfinite(st.best_return))
 
 
 @pytest.mark.parametrize('temperature', [0.0, 0.5])
