@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (dexterity_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py --closed-loop SEED [--max-wall SECONDS]
 
 Needs a CUDA device and the repository checkout beside this file; exits
 non-zero otherwise, and on any failed check.  Phases, one JSON line each:
@@ -20,18 +21,30 @@ non-zero otherwise, and on any failed check.  Phases, one JSON line each:
   2. environment model: one control step (5 substeps, exact Newton, Euler
      damping solve, contact 64/64) at B = 256: K3's 45 launches, and the
      step's device time with K3's share of it.
-  2b. env_step: the per-environment path GoalEnvironment.reset and .step
+  2b. env_step: the per-environment physics GoalEnvironment.reset and .step
      run, on the same model and states: `forward`, then one control step
      of `step_n(refresh='full')`; K3's launches checked exactly (8 in
      forward, 45 in the step), the first 8 environments held against the
      port on the CPU in float64, an unbatched call on environment 0 held
-     against row 0; device time of forward, the step and the refresh
+     against row 0, K3 held against its plain version on this path's own
+     inputs at (256, 30, 30) and (1, 30, 30); device time of forward, the step and the refresh
      alone, the step's idle share and launches, K3's share and design.
+  2c. environment: manipulation.load('reorient', 'state_dense') on the
+     card, GoalEnvironment.reset of 32 episodes from a seeded CPU
+     generator, then 3 steps with seeded actions: wall time of reset and
+     of each step, device time and idle share of one step, K3's launches
+     checked exactly (8 in reset, 45 per step), the placement tries, each
+     observation's shape, and the first 8 episodes held against the same
+     calls on the CPU in float64 (qpos 1e-4, qvel 1e-2, goals, goal
+     distance, reward, step_type, the task-state flags, observations to
+     1e-4 of their max-abs); K3 held against its plain version and
+     float64 on the Hessians and Euler matrices reset and step give it,
+     at (32, 30, 30) and for one episode without a batch axis.
   3. planner (the main path): PredictiveSampling.solve_batch at bench.py's
      configuration (4 streams x 256 samples x 2 CEM iterations, horizon
-     10) from seeded starts and goals: solves/s, launches per solve, action
-     and return checks, and rollout returns held against the port on the
-     CPU in float64.
+     10) from GoalEnvironment.reset's states and goals: solves/s, launches
+     per solve, action and return checks, and rollout returns held
+     against the port on the CPU in float64.
   3b. planner_per_candidate: one stream's solve with batched_rollouts=False
      (256 samples x 2 CEM iterations, each candidate through the
      per-environment step_n): wall time of each solve after a warm-up,
@@ -54,11 +67,29 @@ non-zero otherwise, and on any failed check.  Phases, one JSON line each:
      environment step's shape (`env_shape`).
   7. juggle size: K1 and K2 at n = 62 (the shared-memory design), checked
      against their plain versions and timed beside their bounds.
+  8. closed_loop: scripts/eval_closed_loop_batch.py's configuration (256
+     samples, 2 iterations, horizon 10, 4 knots, the task's 5 substeps,
+     refactor every 4, its keep-in-hand shaping) on 4 goals from reset
+     for at most 10 control steps: solve_batch over all goals, then
+     env.step; finished episodes frozen.  Median goal distance at the
+     start and the end, the episodes that ended, wall per control step,
+     and the wall, device busy time and idle share of one solve_batch and
+     one env.step; K1 and K2 held against their plain versions and
+     float64 on one solve_batch's own inputs (goals x 256 rows; 8192 in
+     the bar); everything finite, frozen episodes unmoved.  No success
+     rate is checked.
   --profile adds host and device time by stage and device time by kernel
   over one planning control step, and the device busy time and idle share
   over one solve_batch.
 Then the `kernels` line (K1-K6), the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}.
+
+--closed-loop SEED runs the probe and then only the closed-loop bar: 32
+goals from seed SEED, up to 300 control steps, stopping when every
+episode has ended (or after --max-wall seconds, reporting how far it
+got).  It prints a progress line every 10 control steps and the run's
+summary in the shape of EVAL_CLOSED_LOOP_r05.json's runs; the exit code
+and the last line do not depend on the success rate.
 """
 
 from __future__ import annotations
@@ -93,6 +124,27 @@ PC_SOLVES = 3
 # The juggle model's nv (ROADMAP §A.3), where K1 and K2 leave the register
 # design.
 JUGGLE_NV = 62
+# Environment phase: GoalEnvironment.reset of B_EPISODES episodes, then
+# ENV_STEPS control steps; the first ENV_CHECKED held against the CPU.
+B_EPISODES = 32
+ENV_STEPS = 3
+ENV_CHECKED = 8
+# Closed loop: scripts/eval_closed_loop_batch.py's configuration as
+# EVAL_CLOSED_LOOP_r05.json records it (plan_substeps None: the task's 5;
+# refactor every 4), with its keep-in-hand shaping (:66-76).  The default
+# phase runs CL_GOALS goals for at most CL_STEPS control steps;
+# --closed-loop SEED runs the bar: BAR_GOALS goals, up to BAR_STEPS.
+CLOSED_LOOP = dict(samples=256, horizon=10, knots=4, temperature=0.0,
+                   noise=0.2, iterations=2, noise_decay=0.5,
+                   failure_penalty=30.0, plan_substeps=None, refactor=4,
+                   solver_iterations=4, ls_iterations=6, midphase=16,
+                   top_k=16)
+SHAPING = dict(horiz=300.0, drop=2000.0, margin=0.035, vel=0.0)
+SPAWN_CENTER = (0.0, -0.13, 0.16)
+CL_GOALS = 4
+CL_STEPS = 10
+BAR_GOALS = 32
+BAR_STEPS = 300
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and FP32 non-tensor rate.
 PEAK_BYTES_PER_S = 3.35e12
@@ -108,7 +160,7 @@ _TREE = 'dexterity_tpu_torch/csrc/tree_sweep.cu'
 KERNELS = [
     ('cholesky_solve_factor', f'{_LP}:135', _REGS, 'main_path'),
     ('cholesky_resolve_const', f'{_LP}:291', _REGS, 'main_path'),
-    ('cholesky_solve', f'{_LP}:74', _REGS, 'environment_model'),
+    ('cholesky_solve', f'{_LP}:74', _REGS, 'environment'),
     ('cholesky_factor', f'{_LP}:262', _REGS, 'entry:cholesky_factor'),
     ('tree_sweep_fk', f'{_TP}:239', _TREE, 'entry:build_tree_sweep'),
     ('tree_sweep_dyn', f'{_TP}:449', _TREE, 'entry:build_tree_sweep'),
@@ -147,8 +199,8 @@ def nvidia_smi_line():
 
 def start_states(torch, types, model, batch, gen, band=0.3):
   """Seeded reorient starts: hand hinge joints within a band of their
-  ranges around 0, the cube at the spawn-workspace centre
-  (reorient.py PROP_BBOX) with a uniformly random orientation."""
+  ranges around 0, the cube at the spawn-workspace centre (reorient.py's
+  workspace) with a uniformly random orientation."""
   qpos = model.qpos0.double().cpu().expand(batch, model.nq).clone()
   for j in range(model.njnt):
     if model.jnt_type[j] == int(types.JointType.HINGE) and \
@@ -395,6 +447,57 @@ def phase_env(torch, pkg, task):
   return launches
 
 
+# K3's calling functions on the environment's path: the Newton iteration
+# (forward and every substep) and the Euler damping solve (every substep).
+_K3_FORWARD = (('newton_iter', 'newton_hessian'),)
+_K3_STEP = _K3_FORWARD + (('euler_from_smooth', 'euler_matrix'),)
+
+
+def _k3_holds(torch, lc, fn, rows, nv, label, callers, out):
+  """Runs fn with K3's inputs captured (outside any counted or timed
+  call) and holds K3 against its plain version and float64 on the first
+  input from each of `callers` ((calling function, name) pairs), which
+  must be (rows, nv, nv); the errors go into `out`.  Returns fn's
+  result."""
+  res, seen = _capture_first(lc, ('cholesky_solve',), fn)
+  for caller, what in callers:
+    h, g = seen[('cholesky_solve', caller)]
+    check(h.shape == (rows, nv, nv) and g.shape == (rows, nv),
+          f'K3 {what} {label}: {tuple(h.shape)}')
+    for key, v in _vs_plain(torch, lc, 'cholesky_solve', h, g,
+                            f'{label} {what}').items():
+      out[f'{label}_{what}{key}'] = v
+  return res
+
+
+def _k12_holds(torch, lc, fn, rows, nv, label):
+  """Runs fn with K1's and K2's inputs captured and holds both against
+  their plain versions and float64 on the planner's own inputs, at
+  (rows, nv, nv): the first refactor Hessian (K1, and K2 on its plain
+  factor) and the first stale-factor resolve (K2 on the factor K1 gave;
+  the matrix it factors is L L^T).  Returns the errors."""
+  _, seen = _capture_first(
+      lc, ('cholesky_solve_factor', 'cholesky_resolve_const'), fn)
+  h, g = seen[('cholesky_solve_factor', 'newton_iter')]
+  fac, g2 = seen[('cholesky_resolve_const', 'newton_iter')]
+  check(h.shape == fac.shape == (rows, nv, nv) and
+        g.shape == g2.shape == (rows, nv),
+        f'{label} K1/K2 inputs {tuple(h.shape)}, {tuple(fac.shape)}')
+  f64 = fac.double()
+  ll = (torch.tril(f64, -1)
+        + torch.diag_embed(1 / torch.diagonal(f64, dim1=-2, dim2=-1)))
+  out = {}
+  for name, args, kw, what in (
+      ('cholesky_solve_factor', (h, g), {}, 'hessian'),
+      ('cholesky_resolve_const', (h, g), {}, 'hessian'),
+      ('cholesky_resolve_const', (ll @ ll.mT, g2), {'fac': fac},
+       'path_factor')):
+    for key, v in _vs_plain(torch, lc, name, *args, f'{label} {what}',
+                            **kw).items():
+      out[f'{name}_{what}{key}'] = v
+  return out
+
+
 def phase_env_step(torch, pkg, task):
   """forward, then one control step of step_n(refresh='full') at B_ENV on
   the environment model as compiled: what GoalEnvironment.reset and
@@ -471,21 +574,13 @@ def phase_env_step(torch, pkg, task):
   # K3 on this path's own inputs against its plain version and float64:
   # the first Newton Hessian and the first Euler matrix M + hD of a control
   # step, for the batch (B_ENV, nv, nv) and for one environment (1, nv, nv).
-  nv = model.nv
   k3_checks = {}
   for label, d, rows in (('batched', fwd, B_ENV),
                          ('unbatched', types.map_data(fwd, lambda x: x[0]),
                           1)):
-    _, seen = _capture_first(linalg_cuda, ('cholesky_solve',), lambda: (
-        step.step_n(model, d, n, refresh='full')))
-    for caller, what in (('newton_iter', 'newton_hessian'),
-                         ('euler_from_smooth', 'euler_matrix')):
-      h, g = seen[('cholesky_solve', caller)]
-      check(h.shape == (rows, nv, nv) and g.shape == (rows, nv),
-            f'K3 {what} {label}: {tuple(h.shape)}')
-      for key, v in _vs_plain(torch, linalg_cuda, 'cholesky_solve', h, g,
-                              f'{label} {what}').items():
-        k3_checks[f'{label}_{what}{key}'] = v
+    _k3_holds(torch, linalg_cuda, lambda: step.step_n(
+        model, d, n, refresh='full'), rows, model.nv, label, _K3_STEP,
+              k3_checks)
 
   # Device time: forward, the control step, and its refresh alone (step_n
   # with no substep runs only the refresh).
@@ -512,6 +607,313 @@ def phase_env_step(torch, pkg, task):
         'step_window': window,
         'k3_device_ms': k3_ms, 'k3_share': k3_ms / step_ms,
         'k3_design': _ran_design(k3)})
+
+
+def _to_cpu64(torch, x):
+  """A card tensor on the CPU, floats in float64."""
+  return x.to('cpu', torch.float64) if x.is_floating_point() else x.cpu()
+
+
+def _capture_tries(task, seen):
+  """Wraps the task's placement pick to keep the tries each reset used
+  (undone by `del task.place_prop`)."""
+  real = task.place_prop
+
+  def place_prop(*args):
+    out = real(*args)
+    seen.append(out[1].cpu())
+    return out
+
+  task.place_prop = place_prop
+
+
+def _max_rel(torch, card, ref):
+  """Max-abs error of a card tensor against a CPU float64 one, relative
+  to the reference's max-abs, at least 1 (a value that is zero in
+  float64, such as a cube's spin in free fall, carries float32 noise)."""
+  err = (_to_cpu64(torch, card) - ref).abs().max().item()
+  return err / max(ref.abs().max().item(), 1.0)
+
+
+def phase_environment(torch, pkg):
+  """manipulation.load('reorient', 'state_dense') on the card: reset of
+  B_EPISODES episodes from a seeded CPU generator, then ENV_STEPS control
+  steps with seeded actions in the spec's range.  K3's launches are
+  checked exactly (8 in reset's forward, 45 per step); the first
+  ENV_CHECKED episodes are held against the same calls on the CPU in
+  float64, from the same seed."""
+  manip, structs = pkg['manipulation'], pkg['structs']
+  env = manip.load('reorient', 'state_dense')
+  model, task = env.model, env.task
+  dev, dtype = model.device, model.dtype
+  check(dev.type == 'cuda' and dtype == torch.float32, 'environment device')
+  spec = env.action_spec()
+  lo = torch.as_tensor(spec.minimum, dtype=torch.float64)
+  hi = torch.as_tensor(spec.maximum, dtype=torch.float64)
+  agen = torch.Generator().manual_seed(SEED + 7)
+  acts = lo + (hi - lo) * torch.rand(ENV_STEPS, B_EPISODES, spec.shape[0],
+                                     generator=agen, dtype=torch.float64)
+  gen = torch.Generator()
+  # Warm-up (first-use caches): a reset and a step of two episodes.
+  warm, _ = env.reset(torch.Generator().manual_seed(SEED + 99), (2,))
+  env.step(warm, acts[0, :2].to(dev, dtype), gen)
+  torch.cuda.synchronize()
+
+  tries = []
+  _capture_tries(task, tries)
+  try:
+    reset_counts(pkg)
+    t0 = time.perf_counter()
+    state, ts = env.reset(torch.Generator().manual_seed(SEED), (B_EPISODES,))
+    torch.cuda.synchronize()
+    reset_wall = time.perf_counter() - t0
+    reset_launches = read_counts(pkg)
+  finally:
+    del task.place_prop
+  check(reset_launches['cholesky_solve'] == model.opt.solver_iterations == 8
+        and sum(reset_launches.values()) == 8,
+        f'reset launches {reset_launches}')
+  card_tries = tries[0]
+  states, steps_ts, step_walls, step_launches = [state], [ts], [], []
+  for i in range(ENV_STEPS):
+    reset_counts(pkg)
+    t0 = time.perf_counter()
+    state, ts = env.step(state, acts[i].to(dev, dtype), gen)
+    torch.cuda.synchronize()
+    step_walls.append(time.perf_counter() - t0)
+    step_launches.append(read_counts(pkg))
+    check(step_launches[-1]['cholesky_solve'] == 45 and
+          sum(step_launches[-1].values()) == 45,
+          f'step launches {step_launches[-1]}')
+    states.append(state)
+    steps_ts.append(ts)
+  for st, t in zip(states, steps_ts):
+    for what, x in (('qpos', st.data.qpos), ('qvel', st.data.qvel),
+                    ('reward', t.reward), *t.observation.items()):
+      check(bool(torch.isfinite(x).all()), f'non-finite {what}')
+  launches = {k: reset_launches[k] + sum(sl[k] for sl in step_launches)
+              for k in reset_launches}
+  # Device time and idle share of one control step (not counted).
+  window = _busy_window(torch, lambda: env.step(
+      states[0], acts[0].to(dev, dtype), gen))
+
+  # K3 on this path's own inputs against its plain version and float64,
+  # outside the counted and timed calls: the first Newton Hessian of
+  # reset's forward, and the first Newton Hessian and Euler matrix M + hD
+  # of a step, at (B_EPISODES, nv, nv) and for one episode without a batch
+  # axis (1, nv, nv).
+  lc, nv = pkg['linalg_cuda'], model.nv
+  k3_checks = {}
+  _k3_holds(torch, lc, lambda: env.reset(
+      torch.Generator().manual_seed(SEED), (B_EPISODES,)), B_EPISODES, nv,
+            'reset', _K3_FORWARD, k3_checks)
+  _k3_holds(torch, lc, lambda: env.step(states[0], acts[0].to(dev, dtype),
+                                        gen), B_EPISODES, nv, 'step',
+            _K3_STEP, k3_checks)
+  one, _ = _k3_holds(torch, lc, lambda: env.reset(
+      torch.Generator().manual_seed(SEED), ()), 1, nv, 'unbatched_reset',
+                     _K3_FORWARD, k3_checks)
+  _k3_holds(torch, lc, lambda: env.step(one, acts[0, 0].to(dev, dtype), gen),
+            1, nv, 'unbatched_step', _K3_STEP, k3_checks)
+
+  # The same calls on the CPU in float64, from the same seed; the first
+  # ENV_CHECKED episodes compared.  An episode whose placement picked
+  # another try on the card (a contact at the margin in float32) is
+  # reported and left out.
+  cpu = manip.load('reorient', 'state_dense', device='cpu',
+                   dtype=torch.float64)
+  cpu_tries = []
+  _capture_tries(cpu.task, cpu_tries)
+  try:
+    cstate, cts = cpu.reset(torch.Generator().manual_seed(SEED),
+                            (B_EPISODES,))
+  finally:
+    del cpu.task.place_prop
+  k = ENV_CHECKED
+  other_try = [i for i in range(k)
+               if int(card_tries[i]) != int(cpu_tries[0][i])]
+  rows = torch.tensor([i for i in range(k) if i not in other_try])
+  check(len(rows) >= k // 2, f'placements differ in {other_try}')
+  cstate, cts = structs.tree_map(lambda x: x[rows], (cstate, cts))
+  errs = []
+  flags = ('successes', 'success_change_counter',
+           'exceeded_single_goal_time', 'success_registered',
+           'goal_changed', 'failure_termination', 'goal_ok')
+  for i, (st, t) in enumerate(zip(states, steps_ts)):
+    if i:
+      cstate, cts = cpu.step(cstate, acts[i - 1, rows], gen)
+    st, t = structs.tree_map(lambda x: x[rows.to(dev)], (st, t))
+    e = {'qpos': (_to_cpu64(torch, st.data.qpos) - cstate.data.qpos
+                  ).abs().max().item(),
+         'qvel': (_to_cpu64(torch, st.data.qvel) - cstate.data.qvel
+                  ).abs().max().item(),
+         'goal': (_to_cpu64(torch, st.task.goal) - cstate.task.goal
+                  ).abs().max().item(),
+         'goal_distance_rel': _max_rel(torch, st.task.goal_distance,
+                                       cstate.task.goal_distance),
+         'reward_rel': ((_to_cpu64(torch, t.reward) - cts.reward).abs().max()
+                        / cts.reward.abs().max().clamp_min(1.0)).item(),
+         'obs_rel': max(_max_rel(torch, t.observation[key], v)
+                        for key, v in cts.observation.items())}
+    check(e['qpos'] < 1e-4 and e['qvel'] < 1e-2 and e['goal'] < 1e-6 and
+          e['goal_distance_rel'] < 1e-4 and e['reward_rel'] < 1e-4 and
+          e['obs_rel'] < 1e-4, f'environment {i} vs CPU float64: {e}')
+    check(bool((t.step_type.cpu() == cts.step_type).all()),
+          f'step_type {t.step_type.tolist()} vs {cts.step_type.tolist()}')
+    for f in flags:
+      check(bool((getattr(st.task, f).cpu() == getattr(cstate.task, f)
+                  ).all()), f'task state {f} after call {i}')
+    errs.append(e)
+  emit({'phase': 'environment', 'batch': B_EPISODES, 'steps': ENV_STEPS,
+        'substeps': task.n_substeps, 'npair': model.npair,
+        'wall_s': {'reset': reset_wall, 'step': step_walls},
+        'launches': {'reset': reset_launches, 'steps': step_launches},
+        'step_window': window,
+        'placement_tries': card_tries.tolist(),
+        'placements_retried': int((card_tries > 1).sum()),
+        'placements_used_all_tries': bool((card_tries >= 20).any()),
+        'cpu_other_try': other_try,
+        'observation_shapes': {key: list(v.shape)
+                               for key, v in steps_ts[-1].observation.items()},
+        'step_types': [t.step_type.tolist() for t in steps_ts],
+        'cpu_f64_max_err': {'reset': errs[0], 'steps': errs[1:]},
+        'k3_vs_plain': k3_checks})
+  return launches, k3_checks
+
+
+def _keep_in_hand(torch, qadr):
+  """scripts/eval_closed_loop_batch.py's planning shaping (:66-76), as the
+  port's batched extra_reward_fn: (model, data (M, ...), goals) -> (M,).
+  Reads qpos only (valid under plan_refresh='none')."""
+  cx, cy, cz = SPAWN_CENTER
+
+  def shaping(model, data, goals):
+    del model, goals
+    pos = data.qpos[..., qadr:qadr + 3]
+    horiz = (pos[..., 0] - cx) ** 2 + (pos[..., 1] - cy) ** 2
+    low = (cz - SHAPING['margin'] - pos[..., 2]).clamp_min(0.0)
+    return -SHAPING['horiz'] * horiz - SHAPING['drop'] * low * low
+
+  return shaping
+
+
+def phase_closed_loop(torch, pkg, goals, max_steps, seed, bar=False,
+                      max_wall=None, smi=''):
+  """Closed-loop reorient MPC at scripts/eval_closed_loop_batch.py's
+  configuration: `goals` episodes in lockstep from GoalEnvironment.reset;
+  each control step plans every episode with one solve_batch and steps
+  the environment; finished episodes are frozen in place (their state
+  and plan kept), and the loop ends when every episode has ended or
+  after `max_steps` (or `max_wall` seconds).  Success: the episode ended
+  solved (0.1 rad) within the steps; a fall is a failure.  Then one
+  solve_batch and one env.step from the final state under the profiler:
+  their wall, device busy time and idle share."""
+  import numpy as np
+  ps, manip, structs = pkg['ps'], pkg['manipulation'], pkg['structs']
+  c = CLOSED_LOOP
+  env = manip.load('reorient', 'state_dense')
+  task = env.task
+  dev = env.model.device
+  cfg = ps.PredictiveSamplingConfig(
+      horizon=c['horizon'], num_samples=c['samples'],
+      noise_scale=c['noise'], num_knots=c['knots'],
+      temperature=c['temperature'], plan_substeps=c['plan_substeps'],
+      iterations=c['iterations'], noise_decay=c['noise_decay'],
+      failure_penalty=c['failure_penalty'],
+      solver_iterations=c['solver_iterations'],
+      ls_iterations=c['ls_iterations'],
+      solver_refactor_every=c['refactor'], plan_midphase_cap=c['midphase'],
+      plan_contact_top_k=c['top_k'])
+  planner = ps.PredictiveSampling(
+      task, cfg, extra_reward_fn=_keep_in_hand(torch, task._prop_qadr))
+  gen = torch.Generator().manual_seed(seed)
+  pgen = torch.Generator(device=dev).manual_seed(seed)
+  t_start = time.perf_counter()
+  state, _ = env.reset(gen, (goals,))
+  pst = planner.init_state(streams=goals)
+  start_err = state.task.goal_distance[:, 0].cpu()
+  done = torch.zeros(goals, dtype=torch.bool, device=dev)
+  solved = torch.zeros_like(done)
+  steps_to_solve = torch.full((goals,), max_steps, dtype=torch.int32,
+                              device=dev)
+  walls, cut, steps = [], False, 0
+  for i in range(max_steps):
+    t0 = time.perf_counter()
+    actions, pst2 = planner.solve_batch(state.data, state.task.goal, pst,
+                                        pgen)
+    state2, ts = env.step(state, actions, gen)
+    ended = ts.step_type == 2
+    newly_solved = ~done & ended & (state2.task.successes >= 1)
+    solved = solved | newly_solved
+    steps_to_solve = torch.where(newly_solved, i + 1, steps_to_solve)
+    # Freeze finished episodes: they keep their terminal state and plan.
+    before = state
+    state = structs.where_rows(done, state, state2)
+    pst = structs.where_rows(done, pst, pst2)
+    if bool(done.any()):
+      check(bool((state.data.qpos[done] == before.data.qpos[done]).all()
+                 and (state.task.goal_distance[done]
+                      == before.task.goal_distance[done]).all()),
+            f'a frozen episode moved at step {i}')
+    done = done | ended
+    for what, x in (('qpos', state.data.qpos), ('qvel', state.data.qvel),
+                    ('actions', actions), ('best_return', pst.best_return)):
+      check(bool(torch.isfinite(x[~done] if what == 'actions' else x).all()),
+            f'non-finite {what} at control step {i}')
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter() - t0)
+    steps = i + 1
+    if bar and steps % 10 == 0:
+      emit({'phase': 'closed_loop_progress', 'seed': seed, 'steps': steps,
+            'ended': int(done.sum()), 'solved': int(solved.sum()),
+            'fell': int(state.task.failure_termination.sum()),
+            'wall_s': time.perf_counter() - t_start})
+    if bool(done.all()):
+      break
+    if max_wall is not None and time.perf_counter() - t_start > max_wall:
+      cut = True
+      break
+  wall = time.perf_counter() - t_start
+  # K1 and K2 on this path's own inputs, at (goals x samples, nv, nv): one
+  # solve_batch from the final state, outside the loop and its results.
+  kernel_checks = _k12_holds(
+      torch, pkg['linalg_cuda'], lambda: planner.solve_batch(
+          state.data, state.task.goal, pst, pgen),
+      goals * c['samples'], planner.model.nv, 'closed-loop')
+  # Host and device share of one control step's two halves, from the
+  # final state (outside the loop and its results).
+  windows = {
+      'solve_batch': _busy_window(torch, lambda: planner.solve_batch(
+          state.data, state.task.goal, pst, pgen)),
+      'env_step': _busy_window(torch, lambda: env.step(
+          state, pst.nominal[:, 0], gen))}
+  err = state.task.goal_distance[:, 0].cpu()
+  fell = state.task.failure_termination.cpu()
+  solved_c = solved.cpu()
+  summary = {
+      'goals': goals,
+      'success_rate': float(solved_c.double().mean()),
+      'fell_rate': float(fell.double().mean()),
+      'mean_steps_solved': (float(steps_to_solve.cpu()[solved_c]
+                                  .double().mean())
+                            if bool(solved_c.any()) else None),
+      'median_final_err_rad': float(np.median(err.double().numpy())),
+      'config': {**{k: c[k] for k in ('samples', 'horizon', 'knots',
+                                      'temperature', 'noise', 'iterations',
+                                      'noise_decay', 'failure_penalty',
+                                      'plan_substeps')},
+                 'shaping': True,
+                 'shape': [SHAPING['horiz'], SHAPING['drop'],
+                           SHAPING['margin'], SHAPING['vel']],
+                 'steps': max_steps, 'seed': seed},
+      'wall_s': wall, 'backend': 'cuda', 'plan_refac': c['refactor'],
+      'device': torch.cuda.get_device_name(0), 'card': smi,
+      'steps_run': steps, 'ended': int(done.sum()),
+      'solved': int(solved_c.sum()), 'cut_by_max_wall': cut,
+      'median_start_err_rad': float(np.median(start_err.double().numpy())),
+      'wall_s_per_control_step': walls, 'control_step_windows': windows,
+      'kernels_vs_plain': kernel_checks}
+  emit({'phase': 'closed_loop_bar' if bar else 'closed_loop', **summary})
 
 
 def _state_errs(torch, card, ref, k):
@@ -1092,9 +1494,9 @@ def phase_factor_entry(torch, pkg, main):
 
 
 def phase_planner(torch, pkg):
-  """PredictiveSampling.solve_batch at bench.py's configuration."""
+  """PredictiveSampling.solve_batch at bench.py's configuration, from
+  GoalEnvironment.reset's states and goals."""
   ps, types, manip = pkg['ps'], pkg['types'], pkg['manipulation']
-  po = pkg['prop_orientation']
   task = manip.build_task('reorient', 'state_dense')
   cfg = ps.PredictiveSamplingConfig(
       horizon=H, num_samples=SAMPLES, iterations=ITERATIONS,
@@ -1110,12 +1512,15 @@ def phase_planner(torch, pkg):
   model = planner.model
   dev, dtype = model.device, model.dtype
   check(dev.type == 'cuda' and dtype == torch.float32, 'planner device')
+  # Start states and goals from GoalEnvironment.reset, as bench.py:84-91
+  # takes them: solve_batch receives the environment model's Data.
+  env = manip.load('reorient', 'state_dense')
   gen = torch.Generator().manual_seed(SEED + 4)
-  qpos = start_states(torch, types, model, STREAMS, gen)
-  goals64 = po.uniform_quaternion(gen, (STREAMS,), torch.float64)
-  data_b = types.make_data(model, (STREAMS,)).replace(
-      qpos=qpos.to(dev, dtype))
-  goals = goals64.to(dev, dtype)
+  state, _ = env.reset(gen, (STREAMS,))
+  data_b, goals = state.data, state.task.goal
+  check(data_b.contact.dist.shape[-1] == types.num_contact_points(
+      env.model) != types.num_contact_points(model),
+        'solve_batch takes the environment model\'s Data')
   pgen = torch.Generator(device=dev).manual_seed(SEED)
   pst = planner.init_state(streams=STREAMS)
   t0 = time.perf_counter()
@@ -1152,23 +1557,24 @@ def phase_planner(torch, pkg):
   # return: float32 rounding times the Newton Hessian's condition (~1e5)
   # gives ~6e-3 relative in qacc per substep, ~1e-4 in qpos after 6
   # substeps of 8.33 ms, and the returns are smooth in the cube's pose.
+  # Both start from the card's reset states (carried to float64).
   cpu = ps.PredictiveSampling(task, cfg, device='cpu', dtype=torch.float64)
   k, steps = 8, 2
-  stream = torch.arange(k) % STREAMS
+  stream = (torch.arange(k) % STREAMS).to(dev)
   u = torch.rand(k, steps, planner.nu, generator=gen, dtype=torch.float64)
   acts = cpu._lo + (cpu._hi - cpu._lo) * u
-  d_card = types.make_data(model, (k,)).replace(
-      qpos=qpos[stream].to(dev, dtype))
-  d_cpu = types.make_data(cpu.model, (k,)).replace(qpos=qpos[stream].clone())
-  r_card = planner.rollout_returns_flat(d_card, goals[stream.to(dev)],
+  d_card = types.map_data(data_b, lambda x: x[stream])
+  d_cpu = types.map_data(d_card, lambda x: _to_cpu64(torch, x))
+  r_card = planner.rollout_returns_flat(d_card, goals[stream],
                                         acts.to(dev, dtype))
-  r_cpu = cpu.rollout_returns_flat(d_cpu, goals64[stream], acts)
+  r_cpu = cpu.rollout_returns_flat(d_cpu, _to_cpu64(torch, goals[stream]),
+                                   acts)
   rel = ((r_card.double().cpu() - r_cpu).abs().max()
          / r_cpu.abs().max().clamp_min(1.0)).item()
   check(rel <= 1e-3, f'planner returns vs CPU float64: {rel}')
 
   wall = sum(walls)
-  emit({'phase': 'planner', 'main_path': True,
+  emit({'phase': 'planner', 'main_path': True, 'start': 'GoalEnvironment.reset',
         'config': {'streams': STREAMS, 'samples': SAMPLES,
                    'iterations': ITERATIONS, 'horizon': H, **PLAN},
         'solves_per_s': STREAMS * SOLVES / wall,
@@ -1206,32 +1612,10 @@ def phase_planner_per_candidate(torch, pkg, bench_walls):
   torch.cuda.synchronize()
   warm_s = time.perf_counter() - t0
 
-  # K1 and K2 on this path's own inputs against their plain versions and
-  # float64, at (SAMPLES, nv, nv): the first refactor Hessian (K1, and K2
-  # on its plain factor) and the first stale-factor resolve (K2 on the
-  # factor K1 gave; the matrix it factors is L L^T).
-  lc = pkg['linalg_cuda']
-  nv = model.nv
-  _, seen = _capture_first(
-      lc, ('cholesky_solve_factor', 'cholesky_resolve_const'),
-      lambda: planner.solve(data, goal, pst, pgen))
-  h, g = seen[('cholesky_solve_factor', 'newton_iter')]
-  fac, g2 = seen[('cholesky_resolve_const', 'newton_iter')]
-  check(h.shape == fac.shape == (SAMPLES, nv, nv) and
-        g.shape == g2.shape == (SAMPLES, nv),
-        f'per-candidate K1/K2 inputs {tuple(h.shape)}, {tuple(fac.shape)}')
-  f64 = fac.double()
-  ll = (torch.tril(f64, -1)
-        + torch.diag_embed(1 / torch.diagonal(f64, dim1=-2, dim2=-1)))
-  kernel_checks = {}
-  for name, args, kw, what in (
-      ('cholesky_solve_factor', (h, g), {}, 'hessian'),
-      ('cholesky_resolve_const', (h, g), {}, 'hessian'),
-      ('cholesky_resolve_const', (ll @ ll.mT, g2), {'fac': fac},
-       'path_factor')):
-    for key, v in _vs_plain(torch, lc, name, *args, f'per-candidate {what}',
-                            **kw).items():
-      kernel_checks[f'{name}_{what}{key}'] = v
+  # K1 and K2 on this path's own inputs, at (SAMPLES, nv, nv).
+  kernel_checks = _k12_holds(torch, pkg['linalg_cuda'],
+                             lambda: planner.solve(data, goal, pst, pgen),
+                             SAMPLES, model.nv, 'per-candidate')
 
   reset_counts(pkg)
   walls = []
@@ -1368,6 +1752,12 @@ def main():
   parser.add_argument('--profile', action='store_true',
                       help='also profile one planning control step and one '
                            'solve_batch')
+  parser.add_argument('--closed-loop', type=int, metavar='SEED',
+                      help=f'run only the closed-loop bar: {BAR_GOALS} goals '
+                           f'from seed SEED, up to {BAR_STEPS} control steps')
+  parser.add_argument('--max-wall', type=float, metavar='SECONDS',
+                      help='with --closed-loop: stop after this many seconds '
+                           'and report how far the run got')
   args = parser.parse_args()
 
   import torch
@@ -1385,26 +1775,41 @@ def main():
   from dexterity_tpu_torch.physics.collision import primitives
   from dexterity_tpu_torch.planners import common
   from dexterity_tpu_torch.planners import predictive_sampling as ps
+  from dexterity_tpu_torch.utils import structs
   pkg = dict(types=types, step=step, linalg_cuda=linalg_cuda,
              tree_cuda=tree_cuda, cuda_build=cuda_build,
              primitives=primitives, common=common, manipulation=manipulation,
              smooth=smooth, constraint=constraint, ps=ps,
-             prop_orientation=prop_orientation)
+             prop_orientation=prop_orientation, structs=structs)
 
   smi = nvidia_smi_line()
   phase_probe(torch, pkg, smi)
+  if args.closed_loop is not None:
+    phase_closed_loop(torch, pkg, BAR_GOALS, BAR_STEPS, args.closed_loop,
+                      bar=True, max_wall=args.max_wall, smi=smi)
+    print(smi, flush=True)
+    emit({'ok': True, 'device': {'platform': 'gpu',
+                                 'kind': torch.cuda.get_device_name(0),
+                                 'count': torch.cuda.device_count()}})
+    return 0
   main_out = phase_rollouts(torch, pkg)
-  env_launches = phase_env(torch, pkg, main_out['task'])
+  phase_env(torch, pkg, main_out['task'])
   phase_env_step(torch, pkg, main_out['task'])
+  env_launches, env_k3 = phase_environment(torch, pkg)
   planner_out = phase_planner(torch, pkg)
   phase_planner_per_candidate(torch, pkg, planner_out['walls'])
   tree_launches, tree_rows = phase_tree_sweep(torch, pkg, main_out)
   factor_launches = phase_factor_entry(torch, pkg, main_out)
   rows = phase_kernels(torch, pkg, main_out)
   rows.update(tree_rows)
+  # K3's row also carries its error on its own path's inputs.
+  rows['cholesky_solve']['max_abs_err'] = max(
+      rows['cholesky_solve']['max_abs_err'],
+      *(v for k, v in env_k3.items() if k.endswith(('_hessian', '_matrix'))))
   phase_juggle_size(torch, pkg, main_out['model'].device)
+  phase_closed_loop(torch, pkg, CL_GOALS, CL_STEPS, SEED, smi=smi)
   path_launches = {'main_path': planner_out['launches'],
-                   'environment_model': env_launches,
+                   'environment': env_launches,
                    'entry:cholesky_factor': factor_launches,
                    'entry:build_tree_sweep': tree_launches}
   if args.profile:

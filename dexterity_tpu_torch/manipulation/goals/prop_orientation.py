@@ -64,11 +64,13 @@ class PropOrientation(goal_lib.GoalGenerator):
     return q / torch.linalg.norm(q, dim=-1, keepdim=True).clamp_min(1e-12)
 
   def next_goal(self, model, data, gen):
+    """One goal per environment, drawn in float64 on `gen`'s device and
+    moved to data's device and dtype: a CPU generator gives the card and
+    the CPU the same goals."""
     del model
-    goal = uniform_quaternion(gen, data.qpos.shape[:-1], data.qpos.dtype,
-                              data.qpos.device)
-    return goal, data, torch.ones(data.qpos.shape[:-1], dtype=torch.bool,
-                                  device=data.qpos.device)
+    goal = uniform_quaternion(gen, data.qpos.shape[:-1], torch.float64)
+    return goal.to(data.qpos), data, torch.ones(
+        data.qpos.shape[:-1], dtype=torch.bool, device=data.qpos.device)
 
   def relative_goal(self, goal_state, current_state):
     """Quaternion taking current to goal."""

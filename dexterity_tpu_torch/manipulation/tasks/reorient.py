@@ -4,30 +4,44 @@ dexterity_tpu/manipulation/tasks/reorient.py).
 Shadow hand + OpenAI cube free prop + a contactless mocap goal-hint body,
 at the task's physics / control timesteps (5 ms / 25 ms).  Goal = uniform
 random quaternion; shaped reward = orientation 1/(err + 0.1) * 1.0 +
-success bonus * 800 + ||ctrl||^2 * (-0.1).  The planner hooks are ported
-(`get_reward`, `rollout_failure`, `plan_refresh = 'none'`);
-`initialize_episode`, `failure_termination` and the observables come with
-the environment step, which has the contact data they read.
+success bonus * 800 + ||ctrl||^2 * (-0.1).  Every hook takes Data with
+any leading batch shape.
+
+`initialize_episode` places the cube by rejection: the JAX package draws
+a pose, runs `fwd_position` and keeps the first collision-free pose
+within _MAX_PLACE_SAMPLES tries (the 20th if none is free) in a
+`lax.while_loop`.  The port draws all tries of all environments up front
+from the caller's generator and runs them as one batch through
+`place_prop`, which picks each environment's first free try.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
 from dexterity_tpu_torch import task as task_lib
+from dexterity_tpu_torch.core import types
 from dexterity_tpu_torch.effectors import HandEffector
-from dexterity_tpu_torch.manipulation.goals import prop_orientation
-from dexterity_tpu_torch.manipulation.shared import rewards
+from dexterity_tpu_torch.manipulation.goals import (fingertip_position,
+                                                    prop_orientation)
+from dexterity_tpu_torch.manipulation.shared import (cameras, observations,
+                                                     rewards, tags,
+                                                     workspaces)
 from dexterity_tpu_torch.models import arenas, hands, props
+from dexterity_tpu_torch.models.binding import HandBinding
+from dexterity_tpu_torch.models.observables import (FreePropObservables,
+                                                    HandObservables)
+from dexterity_tpu_torch.physics import step as physics_step
+from dexterity_tpu_torch.utils import collisions
+from dexterity_tpu_torch.utils.registry import TaggedTasks
 
 
 @dataclasses.dataclass(frozen=True)
-class BoundingBox:
-  lower: Tuple[float, float, float]
-  upper: Tuple[float, float, float]
+class Workspace:
+  prop_bbox: workspaces.BoundingBox
 
 
 _HINT_POS = (0.12, 0.0, 0.15)
@@ -43,12 +57,27 @@ _SUCCESSES_NEEDED = 1
 _MAX_STEPS_SINGLE_SOLVE = 300
 _MAX_TIME_SINGLE_SOLVE = _MAX_STEPS_SINGLE_SOLVE * _CONTROL_TIMESTEP
 _STEPS_BEFORE_MOVING_TARGET = 5
+_MAX_PLACE_SAMPLES = 20
 
 _BBOX_SIZE = 0.05
-# Prop spawn workspace.
-PROP_BBOX = BoundingBox(
-    lower=(-_BBOX_SIZE / 2, -0.13 - _BBOX_SIZE / 2, 0.16),
-    upper=(+_BBOX_SIZE / 2, -0.13 + _BBOX_SIZE / 2, 0.16))
+_WORKSPACE = Workspace(
+    prop_bbox=workspaces.BoundingBox(
+        lower=(-_BBOX_SIZE / 2, -0.13 - _BBOX_SIZE / 2, 0.16),
+        upper=(+_BBOX_SIZE / 2, -0.13 + _BBOX_SIZE / 2, 0.16)))
+
+_FREEPROP_OBSERVABLES = observations.ObservableNames(
+    prop_pose=('position', 'orientation', 'linear_velocity',
+               'angular_velocity'))
+
+SUITE = TaggedTasks()
+
+
+def first_free(free: torch.Tensor) -> torch.Tensor:
+  """Index of the first True along the last axis (the tries), or the last
+  index where none is: the try the JAX package's placement loop keeps."""
+  tries = free.shape[-1]
+  idx = torch.arange(tries, device=free.device)
+  return torch.where(free, idx, tries - 1).amin(-1)
 
 
 class ReOrient(task_lib.GoalTask):
@@ -56,7 +85,11 @@ class ReOrient(task_lib.GoalTask):
 
   def __init__(self, arena, hand, hand_effector, goal_generator, prop,
                hand_prefix: str, prop_prefix: str,
+               workspace: Workspace = _WORKSPACE,
                fall_termination: bool = True,
+               observable_options=None,
+               prop_observable_options=None,
+               camera_observables=None,
                success_threshold: float = _ORIENTATION_THRESHOLD,
                successes_needed: int = _SUCCESSES_NEEDED,
                steps_before_changing_goal: int = _STEPS_BEFORE_MOVING_TARGET,
@@ -71,10 +104,16 @@ class ReOrient(task_lib.GoalTask):
         steps_before_changing_goal=steps_before_changing_goal,
         max_time_per_goal=max_time_per_goal)
     self._fall_termination = fall_termination
-    self.prop = prop
-    self.hand_prefix = hand_prefix
-    self.prop_prefix = prop_prefix
-    self.prop_bbox = PROP_BBOX
+    self._workspace = workspace
+    self._prop = prop
+    self._prop_prefix = prop_prefix
+    self._binding = HandBinding(hand, hand_prefix)
+    self._hand_obs = HandObservables(hand, hand_prefix,
+                                     options=observable_options)
+    self._prop_obs = FreePropObservables(prop, prop_prefix,
+                                         options=prop_observable_options)
+    self._hand_prefix = hand_prefix
+    self._camera_obs = camera_observables
     self.set_timesteps(control_timestep, physics_timestep)
 
   @property
@@ -82,10 +121,99 @@ class ReOrient(task_lib.GoalTask):
     return self.hands[0]
 
   def after_compile(self, model):
-    root = self.prop_prefix + self.prop.spec.worldbody.children[0].name
-    self._prop_body = model.body_names.index(root)
+    self._binding.resolve(model)
+    self._hand_obs.after_compile(model)
+    self._prop_obs.after_compile(model)
+    self._prop_body = self._prop_obs.body_id
     jid = model.body_jntadr[self._prop_body]
     self._prop_qadr = model.jnt_qposadr[jid]
+    # Contact masks: prop-vs-ground (fall detection) and prop-vs-anything
+    # (spawn rejection).
+    self._fall_mask = collisions.group_mask(
+        model, [self._prop_prefix], ['ground'])
+    self._prop_mask = collisions.group_mask(
+        model, [self._prop_prefix],
+        [n for n in model.geom_names if not n.startswith(self._prop_prefix)])
+
+  def _pair_mask(self, model, name: str) -> torch.Tensor:
+    """The mask `self.<name>` as a bool tensor on the model's device,
+    built once per model: reset and every step read it."""
+    return model.cached(('reorient', name), lambda: torch.as_tensor(
+        getattr(self, name), device=model.device))
+
+  def placement_candidates(self, gen: torch.Generator, batch):
+    """Every try of every environment: positions uniform in the spawn
+    box, (*batch, _MAX_PLACE_SAMPLES, 3), and uniform orientations,
+    (*batch, _MAX_PLACE_SAMPLES, 4), in float64 on `gen`'s device."""
+    shape = tuple(batch) + (_MAX_PLACE_SAMPLES,)
+    box = self._workspace.prop_bbox
+    lo = torch.tensor(box.lower, dtype=torch.float64, device=gen.device)
+    hi = torch.tensor(box.upper, dtype=torch.float64, device=gen.device)
+    u = torch.rand(shape + (3,), generator=gen, dtype=torch.float64,
+                   device=gen.device)
+    quat = prop_orientation.uniform_quaternion(gen, shape, torch.float64)
+    return lo + (hi - lo) * u, quat
+
+  def place_prop(self, model, data, pos: torch.Tensor, quat: torch.Tensor):
+    """The prop at each environment's first collision-free candidate pose,
+    or its last when every one collides (PropPlacer semantics, reference:
+    reorient.py:143-151,182-188).
+
+    pos (*batch, T, 3) and quat (*batch, T, 4) hold T tries for data's
+    batch shape; all B x T tries run through `fwd_position` as one batch.
+    Returns (data after `fwd_position` at the chosen pose, the tries
+    used, (*batch,) int64)."""
+    nb = data.qpos.ndim - 1
+    tries = pos.shape[-2]
+    cand = types.map_data(data, lambda x: x.unsqueeze(nb).expand(
+        x.shape[:nb] + (tries,) + x.shape[nb:]).contiguous())
+    qadr = self._prop_qadr
+    qpos = cand.qpos.clone()
+    qpos[..., qadr:qadr + 3] = pos.to(qpos)
+    qpos[..., qadr + 3:qadr + 7] = quat.to(qpos)
+    cand = physics_step.fwd_position(model, cand.replace(qpos=qpos))
+    free = ~collisions.has_collision(cand,
+                                     self._pair_mask(model, '_prop_mask'))
+    pick = first_free(free)
+
+    def chosen(x):
+      idx = pick.reshape(pick.shape + (1,) * (x.ndim - nb))
+      return torch.take_along_dim(x, idx, dim=nb).squeeze(nb)
+
+    return types.map_data(cand, chosen), pick + 1
+
+  def initialize_episode(self, model, data, gen):
+    """Gravity compensation for the hand; the prop placed uniformly in the
+    spawn box, rejecting poses that penetrate anything (place_prop).  The
+    candidates come from `gen` (see placement_candidates)."""
+    data = fingertip_position.compensate_gravity(
+        model, data, self._binding.body_ids)
+    pos, quat = self.placement_candidates(gen, data.qpos.shape[:-1])
+    return self.place_prop(model, data, pos, quat)[0]
+
+  def on_goal_update(self, model, data, task_state):
+    """Points the translucent hint body at the goal orientation
+    (reference: reorient.py:187,198-199)."""
+    if model.nmocap == 0:
+      return data
+    hint_id = model.body_mocapid[model.body_names.index('target_prop')]
+    mocap_quat = data.mocap_quat.clone()
+    mocap_quat[..., hint_id, :] = task_state.goal[..., :4].to(
+        mocap_quat.dtype)
+    return data.replace(mocap_quat=mocap_quat)
+
+  def observables(self, model, data, task_state, eff_state):
+    del eff_state
+    obs = self._hand_obs.as_dict(model, data)
+    obs.update(self._prop_obs.as_dict(model, data))
+    obs['goal_state'] = task_state.goal[..., :4]
+    return obs
+
+  def failure_termination(self, model, data):
+    if not self._fall_termination:
+      return super().failure_termination(model, data)
+    return collisions.has_collision(data,
+                                    self._pair_mask(model, '_fall_mask'))
 
   # Planner rollouts need no kinematics refresh: the reward and the
   # failure proxy below read the free prop's qpos directly.
@@ -96,8 +224,7 @@ class ReOrient(task_lib.GoalTask):
     below 2x its size means it left the hand.  Reads the free joint's
     qpos (== xpos for a free body)."""
     if not self._fall_termination:
-      return torch.zeros(data.qpos.shape[:-1], dtype=torch.bool,
-                         device=data.qpos.device)
+      return super().failure_termination(model, data)
     return data.qpos[..., self._prop_qadr + 2] < 2.0 * _PROP_SIZE
 
   def get_reward(self, model, data, task_state):
@@ -118,8 +245,9 @@ class ReOrient(task_lib.GoalTask):
     return rewards.weighted_average(shaped)
 
 
-def reorient_task() -> ReOrient:
-  """Configures and instantiates a ReOrient task."""
+def reorient_task(observation_set: observations.ObservationSet) -> ReOrient:
+  """Configures and instantiates a ReOrient task (reference:
+  reorient.py:324-364)."""
   arena = arenas.Standard()
   hand = hands.ShadowHandSeriesE()
   hand_prefix = arena.attach(hand, pos=hand.palm_upright_pose.xpos,
@@ -132,10 +260,20 @@ def reorient_task() -> ReOrient:
   arena.spec.add_mocap('target_prop', pos=_HINT_POS)
   goal_generator = prop_orientation.PropOrientation(prop=prop,
                                                     prefix=prop_prefix)
-  return ReOrient(arena=arena, hand=hand, hand_effector=hand_effector,
-                  goal_generator=goal_generator, prop=prop,
-                  hand_prefix=hand_prefix, prop_prefix=prop_prefix)
+  # Closeup camera for vision observables (reference: reorient.py:153-156).
+  camera_observables = cameras.add_camera_observables(
+      arena, observation_set.value, cameras.FRONT_CLOSE)
+  return ReOrient(
+      arena=arena, hand=hand, hand_effector=hand_effector,
+      goal_generator=goal_generator, prop=prop,
+      hand_prefix=hand_prefix, prop_prefix=prop_prefix,
+      observable_options=observations.make_options(
+          observation_set.value, observations.HAND_OBSERVABLES),
+      prop_observable_options=observations.make_options(
+          observation_set.value, _FREEPROP_OBSERVABLES),
+      camera_observables=camera_observables)
 
 
+@SUITE.add(tags.STATE)
 def state_dense() -> ReOrient:
-  return reorient_task()
+  return reorient_task(observation_set=observations.ObservationSet.STATE_ONLY)

@@ -1,12 +1,15 @@
 """Task and GoalTask (port of dexterity_tpu/task.py).
 
 A Task composes an arena, hands and effectors into one ModelSpec, compiles
-it once per (device, dtype), and defines the episode hooks the planner
-reads: the action spec and effector slices, `get_reward`,
-`rollout_failure` and `plan_refresh`.  GoalTask adds the goal generator and
-the goal thresholds.  The hooks take batch-leading Data (any leading batch
-shape).  `initialize_episode`, `observables` and `failure_termination`
-come with the environment step (they need contact data).
+it once per (device, dtype), and defines the episode hooks: the action
+spec and effector slices, `initialize_episode`, `observables`,
+`get_reward`, `failure_termination`, `on_goal_update`, and the planner's
+`rollout_failure` and `plan_refresh`.  GoalTask adds the goal generator
+and the goal thresholds.  The per-episode state machine (goal switching,
+success counting, termination, discounts) runs in
+`environment.GoalEnvironment`.  The hooks take batch-leading Data (any
+leading batch shape, none for one environment) and return one value per
+environment.
 """
 
 from __future__ import annotations
@@ -90,21 +93,44 @@ class Task:
 
   # -- episode hooks ---------------------------------------------------------
 
+  def initialize_episode(self, model, data, gen):
+    """Returns data after per-episode physics edits, drawing from the
+    torch.Generator `gen`."""
+    del model, gen
+    return data
+
+  def observables(self, model, data, task_state, eff_state) -> dict:
+    """Returns the observation dict (a fixed keyset)."""
+    del model, data, task_state, eff_state
+    return {}
+
   def get_reward(self, model, data, task_state):
     del model, task_state
     return data.qpos.new_zeros(data.qpos.shape[:-1])
 
-  def rollout_failure(self, model, data):
-    """Failure predicate for planner rollouts: a cheap position-level
-    proxy of the task's failure (rollouts refresh no contact data)."""
+  def failure_termination(self, model, data):
+    """Task-specific failure predicate (e.g. the prop fell), one bool per
+    environment."""
     del model
     return torch.zeros(data.qpos.shape[:-1], dtype=torch.bool,
                        device=data.qpos.device)
+
+  def rollout_failure(self, model, data):
+    """Failure predicate for planner rollouts: may be a cheap
+    position-level proxy of failure_termination (rollouts refresh no
+    contact data).  Defaults to the exact predicate."""
+    return self.failure_termination(model, data)
 
   # Kinematics refresh level planner rollouts need per control step so the
   # planning reward and rollout_failure read consistent state: 'position'
   # (frames + sites), or 'none' when they read qpos directly.
   plan_refresh = 'position'
+
+  def on_goal_update(self, model, data, task_state):
+    """Hook after a goal is (re)sampled, e.g. to move a visual hint
+    body."""
+    del model, task_state
+    return data
 
   # -- accessors -------------------------------------------------------------
 

@@ -459,3 +459,35 @@ def test_solve_m_unbatched_on_card(dtype):
   assert LC.launches['cholesky_solve'] == 1
   assert x.shape == (30,) and x.is_cuda
   torch.testing.assert_close(x, LC.solve_plain(data.qM, vec), **_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_environment_reset_and_step_on_card():
+  """manipulation.load on the card: reset and one step of 4 environments.
+  K3 runs 8 times in reset's forward (one per exact Newton iteration) and
+  45 times in the step (5 substeps x (8 + 1)); the goals are the CPU
+  generator's draws; the state after the step is finite."""
+  _cuda()
+  env = manipulation.load('reorient', 'state_dense')
+  assert env.model.device.type == 'cuda'
+  LC.reset_launches()
+  state, ts = env.reset(torch.Generator().manual_seed(4), (4,))
+  torch.cuda.synchronize()
+  assert LC.launches['cholesky_solve'] == 8
+  assert sum(LC.launches.values()) == 8
+  cpu = manipulation.load('reorient', 'state_dense', device='cpu',
+                          dtype=torch.float64)
+  ref, _ = cpu.reset(torch.Generator().manual_seed(4), (4,))
+  assert (state.task.goal.double().cpu() - ref.task.goal).abs().max() < 1e-6
+  spec = env.action_spec()
+  act = torch.as_tensor((spec.minimum + spec.maximum) / 2, device='cuda')
+  LC.reset_launches()
+  state, ts = env.step(state, act.expand(4, -1), torch.Generator())
+  torch.cuda.synchronize()
+  assert LC.launches['cholesky_solve'] == 45
+  assert sum(LC.launches.values()) == 45
+  assert ts.step_type.shape == (4,) and ts.reward.is_cuda
+  assert bool(torch.isfinite(state.data.qpos).all())
+  assert bool(torch.isfinite(state.data.qvel).all())
+  for key, obs in ts.observation.items():
+    assert obs.shape[0] == 4 and bool(torch.isfinite(obs).all()), key

@@ -59,7 +59,10 @@ def test_importing_the_port_loads_no_jax():
           '             "physics.cuda_build", "effectors.hand_effector",\n'
           '             "manipulation.goals.prop_orientation",\n'
           '             "manipulation.shared.rewards", "utils.specs", "goal",\n'
-          '             "effector", "task"):\n'
+          '             "effector", "task", "environment", "envs.batched",\n'
+          '             "models.observables", "utils.collisions",\n'
+          '             "utils.metrics", "utils.structs", "hints",\n'
+          '             "exception"):\n'
           '  assert "dexterity_tpu_torch." + name in sys.modules, name\n'
           'bad = [m for m in sys.modules if m.split(".")[0] in '
           '("jax", "dexterity_tpu")]\n'
@@ -76,7 +79,7 @@ def test_tf32_is_off():
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
-  from dexterity_tpu_torch import manipulation
+  from dexterity_tpu_torch import environment, manipulation
   from dexterity_tpu_torch.core import types
   from dexterity_tpu_torch.planners import common
   from dexterity_tpu_torch.planners import predictive_sampling as ps
@@ -88,6 +91,12 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     common.reduced_planning_model(task, 4, 6)
   with pytest.raises(RuntimeError, match='no CUDA device'):
     ps.PredictiveSampling(task, ps.PredictiveSamplingConfig(horizon=2))
+  with pytest.raises(RuntimeError, match='no CUDA device'):
+    manipulation.load('reorient', 'state_dense')
+  with pytest.raises(RuntimeError, match='no CUDA device'):
+    manipulation.load_interactive('reorient', 'state_dense')
+  with pytest.raises(RuntimeError, match='no CUDA device'):
+    environment.GoalEnvironment(task)
   with pytest.raises(RuntimeError, match='no CUDA device'):
     types.resolve_device(None)
   assert types.resolve_device('cpu') == torch.device('cpu')
