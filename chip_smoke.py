@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--profile]
     python3 chip_smoke.py --closed-loop SEED [--max-wall SECONDS]
+    python3 chip_smoke.py --hold-readings N
 
 Needs a CUDA device and the repository checkout beside this file; exits
 non-zero otherwise, and on any failed check.  Phases, one JSON line each:
@@ -21,14 +22,6 @@ non-zero otherwise, and on any failed check.  Phases, one JSON line each:
   2. environment model: one control step (5 substeps, exact Newton, Euler
      damping solve, contact 64/64) at B = 256: K3's 45 launches, and the
      step's device time with K3's share of it.
-  2b. env_step: the per-environment physics GoalEnvironment.reset and .step
-     run, on the same model and states: `forward`, then one control step
-     of `step_n(refresh='full')`; K3's launches checked exactly (8 in
-     forward, 45 in the step), the first 8 environments held against the
-     port on the CPU in float64, an unbatched call on environment 0 held
-     against row 0, K3 held against its plain version on this path's own
-     inputs at (256, 30, 30) and (1, 30, 30); device time of forward, the step and the refresh
-     alone, the step's idle share and launches, K3's share and design.
   2c. environment: manipulation.load('reorient', 'state_dense') on the
      card, GoalEnvironment.reset of 32 episodes from a seeded CPU
      generator, then 3 steps with seeded actions: wall time of reset and
@@ -39,7 +32,13 @@ non-zero otherwise, and on any failed check.  Phases, one JSON line each:
      distance, reward, step_type, the task-state flags, observations to
      1e-4 of their max-abs); K3 held against its plain version and
      float64 on the Hessians and Euler matrices reset and step give it,
-     at (32, 30, 30) and for one episode without a batch axis.
+     at (32, 30, 30) and for one episode without a batch axis.  Then
+     reset and a step at B = 256 (key `b256`): K3's launches (8, 45), the
+     first 8 episodes' step against the CPU float64 step from the card's
+     reset state, one episode's step without a batch axis against row 0,
+     K3 held on the step's Newton Hessian and Euler matrix at
+     (256, 30, 30) and (1, 30, 30), device time of reset's forward, the
+     step and its refresh, the step's idle share, K3's share and design.
   3. planner (the main path): PredictiveSampling.solve_batch at bench.py's
      configuration (4 streams x 256 samples x 2 CEM iterations, horizon
      10) from GoalEnvironment.reset's states and goals: solves/s, launches
@@ -78,11 +77,42 @@ non-zero otherwise, and on any failed check.  Phases, one JSON line each:
      float64 on one solve_batch's own inputs (goals x 256 rows; 8192 in
      the bar); everything finite, frozen episodes unmoved.  No success
      rate is checked.
+  9. reach and juggle: manipulation.load of reach.state_dense (Adroit,
+     nv = 24) and juggle.state_sparse (two MPL hands welded to mocap
+     bodies, nv = 62, 20 equality rows), reset of 32 episodes and 3
+     steps each: wall of reset and steps, device time and idle share of
+     one step, K3's launches (9 per substep; 26 in reset: 8 in its
+     forward and one settle of 2 substeps) and the design that ran
+     (registers at 24, shared at 62), the first 8 episodes held against
+     the CPU float64 port at TASK_LIMITS (qpos, qvel, reach's settled
+     goals; goal distance, reward and observations relative to their
+     max-abs; step_type and the task-state flags equal; an episode is
+     left out only where a rejection search picked another try), K3
+     held against its plain version and float64 on a step's own Newton
+     Hessian and Euler matrix at (32, n, n) and for one episode without a
+     batch axis; for juggle also the tree sweep (K5 + K6) on its reset
+     states at nmocap = 2 against its plain version.
+  10. reach_oracle: examples/oracle_reach.py's policy on 8 reach
+     state_sparse episodes, at most 200 steps: success rate, mean return,
+     steps; every episode must register a solve and see reward 0.
+  11. suite: scripts/bench_suite.py, every manipulation.ALL_NAMES task
+     through BatchedEnvironment.step_with_metrics under uniform random
+     actions at B = 4096: 2 warm-up and the reference's 100 timed steps
+     (`reduced` is empty: no cut), env steps/s, substeps/s, episodes,
+     mean return, K3 launches, the device idle share of one step, peak
+     memory; K3 held against its plain version and float64 on reach's and
+     juggle's own Newton Hessian and Euler matrix at (4096, n, n).
+  12. k3_task_sizes: K3 on juggle's own Newton Hessians at (32, 62, 62)
+     and (4096, 62, 62) (shared design) and reach's at (4096, 24, 24)
+     (register design), each held in phase 9 or 11: device time, bound,
+     plain version, library call, per-call time; these rows join the
+     kernels line.
   --profile adds host and device time by stage and device time by kernel
   over one planning control step, and the device busy time and idle share
   over one solve_batch.
-Then the `kernels` line (K1-K6), the card's name and power limit, and as
-the last line {"ok": true, "device": {...}}.
+Then the `kernels` line (K1-K6, and K3's rows at the new tasks' sizes),
+the card's name and power limit, and as the last line {"ok": true,
+"device": {...}}.
 
 --closed-loop SEED runs the probe and then only the closed-loop bar: 32
 goals from seed SEED, up to 300 control steps, stopping when every
@@ -90,11 +120,18 @@ episode has ended (or after --max-wall seconds, reporting how far it
 got).  It prints a progress line every 10 control steps and the run's
 summary in the shape of EVAL_CLOSED_LOOP_r05.json's runs; the exit code
 and the last line do not depend on the success rate.
+
+--hold-readings N runs the probe and then only phase 9's hold against the
+CPU float64 port, on seeds 0 to N - 1, for runs that are sound (the card;
+the port on the CPU in float32) and faulted (the card with TF32 matrix
+products; with K3's solution rounded to bfloat16): the readings that
+TASK_LIMITS is set from, one line per task.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -145,6 +182,37 @@ CL_GOALS = 4
 CL_STEPS = 10
 BAR_GOALS = 32
 BAR_STEPS = 300
+
+# Reach and juggle phases: manipulation.load of each, reset of B_EPISODES
+# episodes and ENV_STEPS steps, the first ENV_CHECKED held against the CPU.
+TASK_PHASES = (('reach', 'state_dense'), ('juggle', 'state_sparse'))
+# Their holds against the CPU float64 port (PERF.md §2), set from
+# `--hold-readings 8` on the H100: per quantity, the smallest of 1, 2 or
+# 5 x 10^k at least 3x the largest sound reading (card or CPU float32 over
+# 8 seeds x 8 episodes).  Juggle's limits are under every faulted reading
+# (TF32 products, K3 in bfloat16); on reach those faults move qpos, qvel
+# and observations no further than float32 does on some seeds, and the
+# goals (fingertips and joints after 2 settle steps) and reward are what
+# catch them.  `goal` is 0 for juggle, which has none; `rel` is the goal
+# distance and reward relative to their max-abs, `obs` the observations.
+# Reorient's (the environment phase) are PERF.md §2's from PR 7; its goals
+# are drawn, not settled.
+TASK_LIMITS = {'reorient': dict(qpos=1e-4, qvel=1e-2, goal=1e-6, rel=1e-4,
+                                obs=1e-4),
+               'reach': dict(qpos=5e-4, qvel=2e-2, goal=5e-5, rel=5e-5,
+                             obs=2e-3),
+               'juggle': dict(qpos=5e-3, qvel=0.5, goal=0.0, rel=1e-4,
+                              obs=2e-2)}
+# The reach oracle (examples/oracle_reach.py): ORACLE_EPISODES sparse-reward
+# episodes, at most ORACLE_STEPS control steps each.
+ORACLE_EPISODES = 8
+ORACLE_STEPS = 200
+# The suite (scripts/bench_suite.py; BASELINE.json configs[4]: 4096
+# scenarios x all tasks): SUITE_WARMUP steps, then SUITE_STEPS timed steps,
+# the reference's 100 (about 100 s of the script's wall for all four).
+B_SUITE = 4096
+SUITE_WARMUP = 2
+SUITE_STEPS = 100
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and FP32 non-tensor rate.
 PEAK_BYTES_PER_S = 3.35e12
@@ -458,7 +526,7 @@ def _k3_holds(torch, lc, fn, rows, nv, label, callers, out):
   call) and holds K3 against its plain version and float64 on the first
   input from each of `callers` ((calling function, name) pairs), which
   must be (rows, nv, nv); the errors go into `out`.  Returns fn's
-  result."""
+  result and the captured inputs (keyed as _capture_first keys them)."""
   res, seen = _capture_first(lc, ('cholesky_solve',), fn)
   for caller, what in callers:
     h, g = seen[('cholesky_solve', caller)]
@@ -467,7 +535,7 @@ def _k3_holds(torch, lc, fn, rows, nv, label, callers, out):
     for key, v in _vs_plain(torch, lc, 'cholesky_solve', h, g,
                             f'{label} {what}').items():
       out[f'{label}_{what}{key}'] = v
-  return res
+  return res, seen
 
 
 def _k12_holds(torch, lc, fn, rows, nv, label):
@@ -498,115 +566,108 @@ def _k12_holds(torch, lc, fn, rows, nv, label):
   return out
 
 
-def phase_env_step(torch, pkg, task):
-  """forward, then one control step of step_n(refresh='full') at B_ENV on
-  the environment model as compiled: what GoalEnvironment.reset and
-  .step run."""
-  types, step, linalg_cuda = pkg['types'], pkg['step'], pkg['linalg_cuda']
-  model = task.compile(device='cuda')
-  n = task.n_substeps
-  iters = model.opt.solver_iterations
-  check(n == 5 and iters == 8 and model.opt.solver_refactor_every == 1 and
-        not model.opt.implicit_damping and model.npair == 833,
-        'environment model options')
-  gen = torch.Generator().manual_seed(SEED + 1)
-  qpos = start_states(torch, types, model, B_ENV, gen)
-  ctrl = controls(torch, model, 1, B_ENV, gen)[0]
-  data = types.make_data(model, (B_ENV,)).replace(
-      qpos=qpos.to(model.device, model.dtype),
-      ctrl=ctrl.to(model.device, model.dtype))
-  step.step_n(model, step.forward(model, data), n, refresh='full')  # warm-up
-  torch.cuda.synchronize()
+def _environment_at_b_env(torch, pkg, env, gen):
+  """GoalEnvironment.reset and .step of the reorient environment at B_ENV
+  episodes, and of one episode without a batch axis: K3's launches (8 in
+  reset's forward, 45 in a step), the first 8 episodes' step held against
+  the same step on the CPU in float64 from the card's reset state, the
+  unbatched step against row 0, K3 held against its plain version and
+  float64 on the step's own Newton Hessian and Euler matrix at (B_ENV,
+  nv, nv) and (1, nv, nv) (reset's own at (1, nv, nv) in the caller),
+  and the device time of reset's forward, the step and its refresh."""
+  types, step, structs = pkg['types'], pkg['step'], pkg['structs']
+  lc = pkg['linalg_cuda']
+  model, task = env.model, env.task
+  n, iters, nv = task.n_substeps, model.opt.solver_iterations, model.nv
+  dev, dtype = model.device, model.dtype
+  agen = torch.Generator().manual_seed(SEED + 8)
+  spec = env.action_spec()
+  lo = torch.as_tensor(spec.minimum, dtype=torch.float64)
+  hi = torch.as_tensor(spec.maximum, dtype=torch.float64)
+  act = lo + (hi - lo) * torch.rand(B_ENV, spec.shape[0], generator=agen,
+                                    dtype=torch.float64)
 
   def counted(fn):
     reset_counts(pkg)
+    t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
-    return out, read_counts(pkg)
+    return out, read_counts(pkg), time.perf_counter() - t0
 
-  t0 = time.perf_counter()
-  fwd, fwd_launches = counted(lambda: step.forward(model, data))
-  fwd_wall = time.perf_counter() - t0
-  t0 = time.perf_counter()
-  out, step_launches = counted(
-      lambda: step.step_n(model, fwd, n, refresh='full'))
-  step_wall = time.perf_counter() - t0
-  # K3: one factor-and-solve per exact Newton iteration, plus the Euler
-  # damping solve of each substep.
-  check(fwd_launches['cholesky_solve'] == iters and
-        sum(fwd_launches.values()) == iters, f'forward launches '
-        f'{fwd_launches}')
+  (state, _), reset_launches, reset_wall = counted(lambda: env.reset(
+      torch.Generator().manual_seed(SEED + 3), (B_ENV,)))
+  (out, _), step_launches, step_wall = counted(lambda: env.step(
+      state, act.to(dev, dtype), gen))
+  check(reset_launches['cholesky_solve'] == iters and
+        sum(reset_launches.values()) == iters,
+        f'reset launches at B={B_ENV}: {reset_launches}')
   check(step_launches['cholesky_solve'] == n * (iters + 1) and
         sum(step_launches.values()) == n * (iters + 1),
-        f'step_n launches {step_launches}')
-  for what, t in (('qpos', out.qpos), ('qvel', out.qvel), ('xpos', out.xpos),
-                  ('geom_xpos', out.geom_xpos), ('cvel', out.cvel),
-                  ('qacc', fwd.qacc)):
+        f'step launches at B={B_ENV}: {step_launches}')
+  for what, t in (('qpos', out.data.qpos), ('qvel', out.data.qvel),
+                  ('xpos', out.data.xpos), ('geom_xpos', out.data.geom_xpos),
+                  ('cvel', out.data.cvel), ('qacc', state.data.qacc)):
     check(bool(torch.isfinite(t).all()), f'non-finite {what}')
-  in_contact = (out.contact.dist < 0).any(-1).float().mean().item()
+  in_contact = (out.data.contact.dist < 0).any(-1).float().mean().item()
 
-  # The first 8 environments against the port on the CPU in float64, at
-  # the planning rollouts' limits (PERF.md §2): qpos 1e-4, qvel 1e-2, the
+  # The first 8 episodes' step against the CPU float64 port from the card's
+  # reset state, at PERF.md §2's limits: qpos 1e-4, qvel 1e-2, the
   # refreshed frames 1e-4 of their max-abs.
   k = 8
-  cpu = task.compile(device='cpu', dtype=torch.float64)
-  d_cpu = types.make_data(cpu, (k,)).replace(qpos=qpos[:k].clone(),
-                                             ctrl=ctrl[:k].clone())
-  ref = step.step_n(cpu, step.forward(cpu, d_cpu), n, refresh='full')
-  errs = _state_errs(torch, out, ref, k)
+  cpu = pkg['manipulation'].load('reorient', 'state_dense', device='cpu',
+                                 dtype=torch.float64)
+  start = structs.tree_map(lambda x: _to_cpu64(torch, x[:k]), state)
+  ref, _ = cpu.step(start, act[:k], torch.Generator())
+  errs = _state_errs(torch, out.data, ref.data, k)
   check(errs['qpos'] < 1e-4 and errs['qvel'] < 1e-2 and
         errs['xpos_rel'] < 1e-4 and errs['geom_xpos_rel'] < 1e-4,
-        f'env step vs CPU float64: {errs}')
+        f'env step at B={B_ENV} vs CPU float64: {errs}')
 
-  # One environment without a batch axis: K3 at (1, 30, 30).
-  env0 = types.map_data(data, lambda x: x[0])
-  one, one_launches = counted(lambda: step.step_n(
-      model, step.forward(model, env0), n, refresh='full'))
-  check(one.qpos.shape == (model.nq,) and
-        one_launches['cholesky_solve'] == iters + n * (iters + 1),
-        f'unbatched call: {tuple(one.qpos.shape)}, {one_launches}')
-  one_errs = _state_errs(torch, types.map_data(out, lambda x: x[:1]),
-                         types.map_data(one, lambda x: x[None].double().cpu()),
-                         1)
+  # Episode 0 alone, without a batch axis, against row 0.
+  one = structs.tree_map(lambda x: x[0], state)
+  (one_out, _), one_launches, _ = counted(lambda: env.step(
+      one, act[0].to(dev, dtype), gen))
+  check(one_out.data.qpos.shape == (model.nq,) and
+        one_launches['cholesky_solve'] == n * (iters + 1),
+        f'unbatched step: {tuple(one_out.data.qpos.shape)}, {one_launches}')
+  one_errs = _state_errs(
+      torch, types.map_data(out.data, lambda x: x[:1]),
+      types.map_data(one_out.data, lambda x: x[None].double().cpu()), 1)
   check(one_errs['qpos'] < 1e-4 and one_errs['qvel'] < 1e-2 and
         one_errs['xpos_rel'] < 1e-4, f'unbatched vs row 0: {one_errs}')
 
-  # K3 on this path's own inputs against its plain version and float64:
-  # the first Newton Hessian and the first Euler matrix M + hD of a control
-  # step, for the batch (B_ENV, nv, nv) and for one environment (1, nv, nv).
+  # K3 on the step's own inputs (the first Newton Hessian and the first
+  # Euler matrix M + hD), for the batch and for one episode.
   k3_checks = {}
-  for label, d, rows in (('batched', fwd, B_ENV),
-                         ('unbatched', types.map_data(fwd, lambda x: x[0]),
-                          1)):
-    _k3_holds(torch, linalg_cuda, lambda: step.step_n(
-        model, d, n, refresh='full'), rows, model.nv, label, _K3_STEP,
-              k3_checks)
+  _k3_holds(torch, lc, lambda: env.step(state, act.to(dev, dtype), gen),
+            B_ENV, nv, 'batched', _K3_STEP, k3_checks)
+  _k3_holds(torch, lc, lambda: env.step(one, act[0].to(dev, dtype), gen),
+            1, nv, 'unbatched', _K3_STEP, k3_checks)
 
-  # Device time: forward, the control step, and its refresh alone (step_n
+  # Device time: reset's forward, the step, and its refresh alone (step_n
   # with no substep runs only the refresh).
-  fwd_ms, _ = _device_profile(torch, lambda: step.forward(model, data), 1)
+  fwd_ms, _ = _device_profile(torch, lambda: step.forward(model, state.data),
+                              1)
   step_ms, by_kernel = _device_profile(
-      torch, lambda: step.step_n(model, fwd, n, refresh='full'), 1)
+      torch, lambda: env.step(state, act.to(dev, dtype), gen), 1)
   refresh_ms, _ = _device_profile(
-      torch, lambda: step.step_n(model, out, 0, refresh='full'), 1)
+      torch, lambda: step.step_n(model, out.data, 0, refresh='full'), 1)
   k3 = {key: v for key, v in by_kernel.items() if 'cholesky' in key}
   k3_ms = sum(k3.values())
   check(_ran_design(k3) == 'registers', f'K3 ran {list(k3)}')
-  window = _busy_window(torch, lambda: step.step_n(model, fwd, n,
-                                                   refresh='full'))
-  emit({'phase': 'env_step', 'batch': B_ENV, 'substeps': n,
-        'npair': model.npair, 'nv': model.nv,
-        'launches': {'forward': fwd_launches, 'step_n': step_launches,
-                     'unbatched_forward_and_step_n': one_launches},
-        'wall_s': {'forward': fwd_wall, 'step_n': step_wall},
-        'envs_in_contact': in_contact,
-        'cpu_f64_max_err': errs, 'unbatched_vs_row0_max_err': one_errs,
-        'k3_vs_plain': k3_checks,
-        'device_ms': {'forward': fwd_ms, 'step_n_full': step_ms,
-                      'refresh_full': refresh_ms},
-        'step_window': window,
-        'k3_device_ms': k3_ms, 'k3_share': k3_ms / step_ms,
-        'k3_design': _ran_design(k3)})
+  window = _busy_window(torch, lambda: env.step(state, act.to(dev, dtype),
+                                                gen))
+  return {'batch': B_ENV,
+          'launches': {'reset': reset_launches, 'step': step_launches,
+                       'unbatched_step': one_launches},
+          'wall_s': {'reset': reset_wall, 'step': step_wall},
+          'envs_in_contact': in_contact,
+          'cpu_f64_max_err': errs, 'unbatched_vs_row0_max_err': one_errs,
+          'k3_vs_plain': k3_checks,
+          'device_ms': {'forward': fwd_ms, 'step': step_ms,
+                        'refresh_full': refresh_ms},
+          'step_window': window, 'k3_device_ms': k3_ms,
+          'k3_share': k3_ms / step_ms, 'k3_design': _ran_design(k3)}
 
 
 def _to_cpu64(torch, x):
@@ -614,17 +675,22 @@ def _to_cpu64(torch, x):
   return x.to('cpu', torch.float64) if x.is_floating_point() else x.cpu()
 
 
-def _capture_tries(task, seen):
-  """Wraps the task's placement pick to keep the tries each reset used
-  (undone by `del task.place_prop`)."""
-  real = task.place_prop
+@contextlib.contextmanager
+def _picks(hands):
+  """While the block runs, keeps the try that each rejection search
+  (hands.first_free_chunked) picks, in call order, on the CPU."""
+  real, seen = hands.first_free_chunked, []
 
-  def place_prop(*args):
-    out = real(*args)
-    seen.append(out[1].cpu())
+  def wrapper(*args, **kwargs):
+    out = real(*args, **kwargs)
+    seen.append(out[2].cpu())
     return out
 
-  task.place_prop = place_prop
+  hands.first_free_chunked = wrapper
+  try:
+    yield seen
+  finally:
+    hands.first_free_chunked = real
 
 
 def _max_rel(torch, card, ref):
@@ -659,21 +725,17 @@ def phase_environment(torch, pkg):
   env.step(warm, acts[0, :2].to(dev, dtype), gen)
   torch.cuda.synchronize()
 
-  tries = []
-  _capture_tries(task, tries)
-  try:
-    reset_counts(pkg)
-    t0 = time.perf_counter()
+  reset_counts(pkg)
+  t0 = time.perf_counter()
+  with _picks(pkg['hands']) as picks:
     state, ts = env.reset(torch.Generator().manual_seed(SEED), (B_EPISODES,))
-    torch.cuda.synchronize()
-    reset_wall = time.perf_counter() - t0
-    reset_launches = read_counts(pkg)
-  finally:
-    del task.place_prop
+  torch.cuda.synchronize()
+  reset_wall = time.perf_counter() - t0
+  reset_launches = read_counts(pkg)
   check(reset_launches['cholesky_solve'] == model.opt.solver_iterations == 8
         and sum(reset_launches.values()) == 8,
         f'reset launches {reset_launches}')
-  card_tries = tries[0]
+  card_tries = picks[0] + 1
   states, steps_ts, step_walls, step_launches = [state], [ts], [], []
   for i in range(ENV_STEPS):
     reset_counts(pkg)
@@ -710,11 +772,14 @@ def phase_environment(torch, pkg):
   _k3_holds(torch, lc, lambda: env.step(states[0], acts[0].to(dev, dtype),
                                         gen), B_EPISODES, nv, 'step',
             _K3_STEP, k3_checks)
-  one, _ = _k3_holds(torch, lc, lambda: env.reset(
+  (one, _), _ = _k3_holds(torch, lc, lambda: env.reset(
       torch.Generator().manual_seed(SEED), ()), 1, nv, 'unbatched_reset',
                      _K3_FORWARD, k3_checks)
   _k3_holds(torch, lc, lambda: env.step(one, acts[0, 0].to(dev, dtype), gen),
             1, nv, 'unbatched_step', _K3_STEP, k3_checks)
+  at_b_env = _environment_at_b_env(torch, pkg, env, gen)
+  k3_checks.update({f'b{B_ENV}_{key}': v
+                    for key, v in at_b_env.pop('k3_vs_plain').items()})
 
   # The same calls on the CPU in float64, from the same seed; the first
   # ENV_CHECKED episodes compared.  An episode whose placement picked
@@ -722,48 +787,16 @@ def phase_environment(torch, pkg):
   # reported and left out.
   cpu = manip.load('reorient', 'state_dense', device='cpu',
                    dtype=torch.float64)
-  cpu_tries = []
-  _capture_tries(cpu.task, cpu_tries)
-  try:
-    cstate, cts = cpu.reset(torch.Generator().manual_seed(SEED),
-                            (B_EPISODES,))
-  finally:
-    del cpu.task.place_prop
+  ref = _episodes(torch, pkg, cpu, SEED, acts)
   k = ENV_CHECKED
-  other_try = [i for i in range(k)
-               if int(card_tries[i]) != int(cpu_tries[0][i])]
+  card = _head(structs, states, steps_ts, picks)
+  other_try = _other_picks(card, ref)
   rows = torch.tensor([i for i in range(k) if i not in other_try])
   check(len(rows) >= k // 2, f'placements differ in {other_try}')
-  cstate, cts = structs.tree_map(lambda x: x[rows], (cstate, cts))
-  errs = []
-  flags = ('successes', 'success_change_counter',
-           'exceeded_single_goal_time', 'success_registered',
-           'goal_changed', 'failure_termination', 'goal_ok')
-  for i, (st, t) in enumerate(zip(states, steps_ts)):
-    if i:
-      cstate, cts = cpu.step(cstate, acts[i - 1, rows], gen)
-    st, t = structs.tree_map(lambda x: x[rows.to(dev)], (st, t))
-    e = {'qpos': (_to_cpu64(torch, st.data.qpos) - cstate.data.qpos
-                  ).abs().max().item(),
-         'qvel': (_to_cpu64(torch, st.data.qvel) - cstate.data.qvel
-                  ).abs().max().item(),
-         'goal': (_to_cpu64(torch, st.task.goal) - cstate.task.goal
-                  ).abs().max().item(),
-         'goal_distance_rel': _max_rel(torch, st.task.goal_distance,
-                                       cstate.task.goal_distance),
-         'reward_rel': ((_to_cpu64(torch, t.reward) - cts.reward).abs().max()
-                        / cts.reward.abs().max().clamp_min(1.0)).item(),
-         'obs_rel': max(_max_rel(torch, t.observation[key], v)
-                        for key, v in cts.observation.items())}
-    check(e['qpos'] < 1e-4 and e['qvel'] < 1e-2 and e['goal'] < 1e-6 and
-          e['goal_distance_rel'] < 1e-4 and e['reward_rel'] < 1e-4 and
-          e['obs_rel'] < 1e-4, f'environment {i} vs CPU float64: {e}')
-    check(bool((t.step_type.cpu() == cts.step_type).all()),
-          f'step_type {t.step_type.tolist()} vs {cts.step_type.tolist()}')
-    for f in flags:
-      check(bool((getattr(st.task, f).cpu() == getattr(cstate.task, f)
-                  ).all()), f'task state {f} after call {i}')
-    errs.append(e)
+  errs = _episode_errs(torch, pkg, card, ref, rows)
+  for i, e in enumerate(errs):
+    check(not _over(e, TASK_LIMITS['reorient']),
+          f'environment {i} vs CPU float64: {e}')
   emit({'phase': 'environment', 'batch': B_EPISODES, 'steps': ENV_STEPS,
         'substeps': task.n_substeps, 'npair': model.npair,
         'wall_s': {'reset': reset_wall, 'step': step_walls},
@@ -777,8 +810,474 @@ def phase_environment(torch, pkg):
                                for key, v in steps_ts[-1].observation.items()},
         'step_types': [t.step_type.tolist() for t in steps_ts],
         'cpu_f64_max_err': {'reset': errs[0], 'steps': errs[1:]},
-        'k3_vs_plain': k3_checks})
+        'k3_vs_plain': k3_checks, f'b{B_ENV}': at_b_env})
   return launches, k3_checks
+
+
+def _timing_row(torch, fn, plain, lib, b, n, kind):
+  """A kernel row's timing fields at (b, n, n) float32: the plain
+  version's and the library call's device ms, the bound, and the
+  wrapper's per-call ms."""
+  bound_ms, bound_by = _bound(b, n, 4, kind)
+  return {'plain_ms': _device_ms(torch, plain, 5), 'bound_ms': bound_ms,
+          'bound_by': bound_by, 'library_ms': _device_ms(torch, lib, 50),
+          'call_ms': _call_ms(torch, fn, 100), 'shape': [b, n, n],
+          'dtype': 'float32'}
+
+
+def _k3_row(torch, lc, h, g, path, launches, err):
+  """K3's kernels-line row on a path's own Newton Hessians (rows, n, n),
+  whose hold (_k3_holds) gave `err` against the plain version: the design
+  that ran, device time, and _timing_row's fields (the library call is
+  cholesky_ex + cholesky_solve)."""
+  fn = lambda: lc.cholesky_solve(h, g)
+  ms, names = _device_profile(torch, fn, 100)
+  ran = _ran_design(names)
+  check(ran == lc._design(h.shape[-1], h.dtype),
+        f'K3 at n={h.shape[-1]} ran {ran}')
+  g3 = g[..., None]
+  return {'max_abs_err': err, 'ms': ms, 'kernel_ms': ms, 'design': ran,
+          **_timing_row(torch, fn, lambda: lc.solve_plain(h, g),
+                        lambda: torch.cholesky_solve(
+                            g3, torch.linalg.cholesky_ex(h)[0]),
+                        h.shape[0], h.shape[-1], 'solve'),
+          'path': path, 'launches': launches}
+
+
+def _action_bounds(torch, spec):
+  """The action spec's bounds in float64, unlimited ones as -1 and 1 (as
+  scripts/bench_suite.py draws them)."""
+  lo = torch.as_tensor(spec.minimum, dtype=torch.float64)
+  hi = torch.as_tensor(spec.maximum, dtype=torch.float64)
+  return (torch.where(torch.isfinite(lo), lo, -torch.ones_like(lo)),
+          torch.where(torch.isfinite(hi), hi, torch.ones_like(hi)))
+
+
+def _task_actions(torch, env, seed):
+  """(ENV_STEPS, B_EPISODES, nu) seeded actions on the CPU in float64, in
+  a band of 0.3 of the spec's range around its middle (the convention of
+  `controls`)."""
+  lo, hi = _action_bounds(torch, env.action_spec())
+  agen = torch.Generator().manual_seed(seed + 7)
+  u = torch.rand(ENV_STEPS, B_EPISODES, lo.shape[0], generator=agen,
+                 dtype=torch.float64)
+  return lo + (hi - lo) * (0.5 + 0.3 * (u - 0.5))
+
+
+def _episodes(torch, pkg, env, seed, acts):
+  """reset of B_EPISODES episodes from `seed` on env's device; the first
+  ENV_CHECKED then take a step per row of `acts`.  Returns (the state and
+  the time step of each call, over those episodes; the try each of the
+  reset's rejection searches picked for them)."""
+  structs = pkg['structs']
+  dev, dtype, k = env.model.device, env.model.dtype, ENV_CHECKED
+  with _picks(pkg['hands']) as picks:
+    state, ts = env.reset(torch.Generator().manual_seed(seed), (B_EPISODES,))
+  state, ts = structs.tree_map(lambda x: x[:k], (state, ts))
+  states, tss, gen = [state], [ts], torch.Generator()
+  for a in acts[:, :k]:
+    state, ts = env.step(state, a.to(dev, dtype), gen)
+    states.append(state)
+    tss.append(ts)
+  return states, tss, [p[:k] for p in picks]
+
+
+def _head(structs, states, tss, picks):
+  """The first ENV_CHECKED episodes of a run's states, time steps and
+  rejection picks, as _episodes returns them."""
+  k = ENV_CHECKED
+  return ([structs.tree_map(lambda x: x[:k], st) for st in states],
+          [structs.tree_map(lambda x: x[:k], t) for t in tss],
+          [p[:k] for p in picks])
+
+
+def _other_picks(run, ref):
+  """The episodes whose rejection searches picked another try in `run`
+  than in `ref` (a contact at the margin in float32)."""
+  return [i for i in range(ENV_CHECKED)
+          if any(int(a[i]) != int(b[i]) for a, b in zip(run[2], ref[2]))]
+
+
+_FLAGS = ('successes', 'success_change_counter', 'exceeded_single_goal_time',
+          'success_registered', 'goal_changed', 'failure_termination',
+          'goal_ok')
+
+
+def _episode_errs(torch, pkg, run, ref, rows):
+  """Per call (reset, then each step), episodes `rows` of a run
+  (_episodes) against a CPU float64 run: the max-abs error of qpos, qvel
+  and the goal; of the goal distance, reward and observations relative to
+  the reference's max-abs (at least 1); whether step_type and every
+  task-state flag are equal."""
+  structs = pkg['structs']
+
+  def sub(x):
+    return structs.tree_map(lambda y: y[rows.to(y.device)], x)
+
+  def err(a, b):
+    return (_to_cpu64(torch, a) - b).abs().max().item() if b.numel() else 0.0
+
+  out = []
+  for st, t, cst, cts in zip(*(map(sub, x) for x in (*run[:2], *ref[:2]))):
+    out.append({
+        'qpos': err(st.data.qpos, cst.data.qpos),
+        'qvel': err(st.data.qvel, cst.data.qvel),
+        'goal': err(st.task.goal, cst.task.goal),
+        'goal_distance_rel': _max_rel(torch, st.task.goal_distance,
+                                      cst.task.goal_distance),
+        'reward_rel': _max_rel(torch, t.reward, cts.reward),
+        'obs_rel': max(_max_rel(torch, t.observation[key], v)
+                       for key, v in cts.observation.items()),
+        'step_type_equal': bool((t.step_type.cpu() == cts.step_type).all()),
+        'flags_equal': all(bool((getattr(st.task, f).cpu()
+                                 == getattr(cst.task, f)).all())
+                           for f in _FLAGS)})
+  return out
+
+
+def _over(e, lim):
+  """The entries of one call's errors (_episode_errs) outside the task's
+  limits; NaN is outside."""
+  bounds = {'qpos': lim['qpos'], 'qvel': lim['qvel'], 'goal': lim['goal'],
+            'goal_distance_rel': lim['rel'], 'reward_rel': lim['rel'],
+            'obs_rel': lim['obs']}
+  return ([key for key, b in bounds.items() if not e[key] <= b]
+          + [key for key in ('step_type_equal', 'flags_equal') if not e[key]])
+
+
+def phase_task(torch, pkg, domain, variant):
+  """manipulation.load(domain, variant) on the card: reset of B_EPISODES
+  episodes from a seeded CPU generator and ENV_STEPS steps with seeded
+  actions.  K3's launches: 8 in reset's forward and one settle of 2
+  substeps (9 per substep: 8 Newton iterations and the Euler solve) for
+  reach's goal search (every try in one round at this batch) or the
+  hands' settle (juggle); 9 per step.  The first ENV_CHECKED episodes are
+  held against the same calls on the CPU in float64 at TASK_LIMITS (an
+  episode whose rejection search picked another try in float32 is
+  reported and left out; juggle has none); K3 against its plain version
+  and float64 on a step's own Newton Hessian and Euler matrix, at
+  (B_EPISODES, nv, nv) and for one episode without a batch axis."""
+  manip, structs, lc = pkg['manipulation'], pkg['structs'], pkg['linalg_cuda']
+  name = f'{domain}.{variant}'
+  env = manip.load(domain, variant)
+  model, task = env.model, env.task
+  dev, dtype, nv = model.device, model.dtype, model.nv
+  iters = model.opt.solver_iterations
+  per_step = task.n_substeps * (iters + 1)
+  check(dev.type == 'cuda' and dtype == torch.float32 and
+        model.opt.solver_refactor_every == 1, f'{name} model')
+  lim = TASK_LIMITS[domain]
+  acts = _task_actions(torch, env, SEED)
+  gen = torch.Generator()
+  warm, _ = env.reset(torch.Generator().manual_seed(SEED + 99), (2,))
+  env.step(warm, acts[0, :2].to(dev, dtype), gen)
+  torch.cuda.synchronize()
+
+  reset_counts(pkg)
+  t0 = time.perf_counter()
+  with _picks(pkg['hands']) as picks:
+    state, ts = env.reset(torch.Generator().manual_seed(SEED), (B_EPISODES,))
+  torch.cuda.synchronize()
+  reset_wall = time.perf_counter() - t0
+  reset_launches = read_counts(pkg)
+  k3 = reset_launches['cholesky_solve']
+  check(sum(reset_launches.values()) == k3 == iters + 2 * (iters + 1),
+        f'{name} reset launches {reset_launches}')
+  check(bool(state.task.goal_ok.all()), f'{name} goal sampling failed')
+  states, tss, walls, step_launches = [state], [ts], [], []
+  for i in range(ENV_STEPS):
+    reset_counts(pkg)
+    t0 = time.perf_counter()
+    state, ts = env.step(state, acts[i].to(dev, dtype), gen)
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter() - t0)
+    step_launches.append(read_counts(pkg))
+    check(step_launches[-1]['cholesky_solve'] == per_step and
+          sum(step_launches[-1].values()) == per_step,
+          f'{name} step launches {step_launches[-1]}')
+    check(not bool(state.task.goal_changed.any()), f'{name} goal switched')
+    states.append(state)
+    tss.append(ts)
+  for st, t in zip(states, tss):
+    for what, x in (('qpos', st.data.qpos), ('qvel', st.data.qvel),
+                    ('reward', t.reward), *t.observation.items()):
+      check(bool(torch.isfinite(x).all()), f'{name}: non-finite {what}')
+  launches = {k: reset_launches[k] + sum(sl[k] for sl in step_launches)
+              for k in reset_launches}
+  window = _busy_window(torch, lambda: env.step(
+      states[0], acts[0].to(dev, dtype), gen))
+  _, by_kernel = _device_profile(torch, lambda: env.step(
+      states[0], acts[0].to(dev, dtype), gen), 1)
+  design = _ran_design([k for k in by_kernel if 'cholesky' in k])
+  check(design == lc._design(nv, dtype), f'{name}: K3 ran {design}')
+
+  # K3 on this path's own inputs, outside the counted and timed calls.
+  k3_checks = {}
+  _, seen = _k3_holds(torch, lc, lambda: env.step(
+      states[0], acts[0].to(dev, dtype), gen), B_EPISODES, nv, 'step',
+                      _K3_STEP, k3_checks)
+  one = structs.tree_map(lambda x: x[0], states[0])
+  _k3_holds(torch, lc, lambda: env.step(one, acts[0, 0].to(dev, dtype), gen),
+            1, nv, 'unbatched_step', _K3_STEP, k3_checks)
+
+  # The same calls on the CPU in float64 from the same seed.
+  k = ENV_CHECKED
+  card = _head(structs, states, tss, picks)
+  ref = _episodes(torch, pkg, manip.load(domain, variant, device='cpu',
+                                         dtype=torch.float64), SEED, acts)
+  other = _other_picks(card, ref)
+  rows = torch.tensor([i for i in range(k) if i not in other])
+  check(len(rows) >= k // 2, f'{name}: rejection picks differ in {other}')
+  errs = _episode_errs(torch, pkg, card, ref, rows)
+  for i, e in enumerate(errs):
+    check(not _over(e, lim), f'{name} call {i} vs CPU float64: {e}')
+  tree = (_tree_sweep_hold(torch, pkg, task, model, states[0].data)
+          if model.nmocap > 1 else None)
+  emit({'phase': domain, 'task': name, 'batch': B_EPISODES,
+        'steps': ENV_STEPS, 'substeps': task.n_substeps, 'nq': model.nq,
+        'nv': nv, 'nu': model.nu, 'neq': model.neq, 'nmocap': model.nmocap,
+        'npair': model.npair, 'k3_design': design,
+        'wall_s': {'reset': reset_wall, 'step': walls},
+        'launches': {'reset': reset_launches, 'steps': step_launches},
+        'step_window': window, 'rejection_picks': [p.tolist() for p in picks],
+        'cpu_other_pick': other, 'limits': lim,
+        'observation_shapes': {key: list(v.shape)
+                               for key, v in tss[-1].observation.items()},
+        'step_types': [t.step_type.tolist() for t in tss],
+        'cpu_f64_max_err': {'reset': errs[0], 'steps': errs[1:]},
+        'k3_vs_plain': k3_checks, 'tree_sweep_hold': tree})
+  return {'launches': launches,
+          'k3_inputs': seen[('cholesky_solve', 'newton_iter')],
+          'k3_err': k3_checks['step_newton_hessian']}
+
+
+def _worst(vals):
+  """The largest of floats, NaN if any is; all of booleans."""
+  if isinstance(vals[0], bool):
+    return all(vals)
+  return float('nan') if any(v != v for v in vals) else max(vals)
+
+
+def phase_hold_readings(torch, pkg, seeds):
+  """The reach and juggle phases' hold against the CPU float64 port, on
+  `seeds`, to choose TASK_LIMITS: the readings of sound runs (the card;
+  the port on the CPU in float32) and of two faulted card runs (every
+  float32 matrix product in TF32; K3's solution rounded to bfloat16), each
+  the worst over reset and the steps, with the entries over TASK_LIMITS.
+  A faulted run that raises is reported as such."""
+  manip, lc = pkg['manipulation'], pkg['linalg_cuda']
+  real_k3 = lc.cholesky_solve
+
+  def tf32(fn):
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+      return fn()
+    finally:
+      torch.backends.cuda.matmul.allow_tf32 = False
+
+  def k3_bf16(fn):
+    lc.cholesky_solve = lambda h, g: real_k3(h, g).bfloat16().to(g.dtype)
+    try:
+      return fn()
+    finally:
+      lc.cholesky_solve = real_k3
+
+  for domain, variant in TASK_PHASES:
+    lim = TASK_LIMITS[domain]
+    card = manip.load(domain, variant)
+    cpu = {dt: manip.load(domain, variant, device='cpu', dtype=dt)
+           for dt in (torch.float32, torch.float64)}
+    readings = {}
+    for seed in seeds:
+      acts = _task_actions(torch, card, seed)
+      ref = _episodes(torch, pkg, cpu[torch.float64], seed, acts)
+      run = lambda e: (lambda: _episodes(torch, pkg, e, seed, acts))
+      for what, fn, faulted in (
+          ('card', run(card), False),
+          ('cpu_float32', run(cpu[torch.float32]), False),
+          ('card_tf32', lambda: tf32(run(card)), True),
+          ('card_k3_bfloat16', lambda: k3_bf16(run(card)), True)):
+        entry = {'seed': seed}
+        try:
+          got = fn()
+        except Exception as exc:  # noqa: BLE001 (a faulted run may raise)
+          if not faulted:
+            raise
+          readings.setdefault(what, []).append(
+              {**entry, 'raised': f'{type(exc).__name__}: {exc}'[:300]})
+          continue
+        other = _other_picks(got, ref)
+        rows = torch.tensor([i for i in range(ENV_CHECKED) if i not in other])
+        errs = _episode_errs(torch, pkg, got, ref, rows)
+        worst = {key: _worst([e[key] for e in errs]) for key in errs[0]}
+        readings.setdefault(what, []).append(
+            {**entry, 'other_pick': other, 'worst': worst,
+             'over_limits': _over(worst, lim)})
+    emit({'phase': 'hold_readings', 'task': f'{domain}.{variant}',
+          'batch': B_EPISODES, 'episodes': ENV_CHECKED, 'steps': ENV_STEPS,
+          'limits': lim, 'readings': readings})
+
+
+def _tree_sweep_hold(torch, pkg, task, model, data):
+  """build_tree_sweep (K5 + K6) on a model with several mocap bodies, on
+  the phase's reset states, against its plain version: float32 to 1e-4
+  and float64 to 1e-10 of each output's max-abs; each mocap body's world
+  pose is its own component-major rows (row c * nmocap + m)."""
+  tc = pkg['tree_cuda']
+  out = {}
+  for dtype, lim in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
+    # The float64 model is compiled in float64 (a float32 model cast up
+    # has quaternions off unit length by float32 rounding, and the
+    # kernel's level-by-level and the plain version's pointer-jumping
+    # compositions then part at that size).
+    m = model if dtype == torch.float32 else task.compile(device=model.device,
+                                                          dtype=dtype)
+    ins = _tree_inputs(torch, data, dtype)
+    got = tc.build_tree_sweep(m)(*ins)
+    want = tc.tree_sweep_plain(m, *ins)
+    for key, w in want.items():
+      err = (got[key] - w).abs().max().item()
+      scale = max(w.abs().max().item(), 1.0)
+      check(bool(torch.isfinite(got[key]).all()) and err <= lim * scale,
+            f'tree sweep {dtype} {key}: {err} > {lim} * {scale}')
+      out[f'{key}_{str(dtype)[6:]}'] = err / scale
+    nb, nm = m.nbody, m.nmocap
+    for k in range(nm):
+      body = m.body_mocapid.index(k)
+      rows = torch.arange(3, device=ins[0].device) * nb + body
+      check(bool((got['xpos'][rows] == ins[2][torch.arange(
+          3, device=ins[0].device) * nm + k]).all()),
+            f'mocap body {k}: xpos rows')
+  out.update({'batch': int(data.qpos.shape[0]), 'nmocap': model.nmocap,
+              'nbody': model.nbody, 'nv': model.nv})
+  return out
+
+
+def phase_reach_oracle(torch, pkg):
+  """examples/oracle_reach.py on the card: ORACLE_EPISODES reach
+  state_sparse episodes from a seeded CPU generator, control =
+  hand.joint_positions_to_control(goal[15:]) every step (the goal switches
+  after 5 in-threshold steps), until every episode has registered a solve
+  and seen reward 0, at most ORACLE_STEPS steps.  Every episode must (the
+  hold of JAX's tests/test_suite.py on its one episode)."""
+  manip = pkg['manipulation']
+  env = manip.load('reach', 'state_sparse')
+  hand, dev = env.task.hand, env.model.device
+  gen = torch.Generator().manual_seed(SEED + 42)
+  state, _ = env.reset(gen, (ORACLE_EPISODES,))
+  best = torch.full((ORACLE_EPISODES,), -float('inf'), device=dev)
+  solved = torch.zeros(ORACLE_EPISODES, dtype=torch.int32, device=dev)
+  ret = torch.zeros(ORACLE_EPISODES, device=dev)
+  first_step = torch.full((ORACLE_EPISODES,), -1, dtype=torch.int64)
+  switches = 0
+  t0 = time.perf_counter()
+  steps = 0
+  for steps in range(1, ORACLE_STEPS + 1):
+    ctrl = hand.joint_positions_to_control(state.task.goal[..., 15:])
+    state, ts = env.step(state, ctrl, gen)
+    best = torch.maximum(best, ts.reward)
+    ret = ret + ts.reward
+    solved = torch.maximum(solved, state.task.successes)
+    switches += int(state.task.goal_changed.sum())
+    hit = ((solved >= 1) & (best == 0)).cpu()
+    first_step = torch.where(hit & (first_step < 0), steps, first_step)
+    check(bool(torch.isfinite(state.data.qpos).all()), 'oracle: non-finite')
+    if bool(hit.all()):
+      break
+  wall = time.perf_counter() - t0
+  hit = ((solved >= 1) & (best == 0)).cpu()
+  out = {'phase': 'reach_oracle', 'episodes': ORACLE_EPISODES,
+         'steps': steps, 'max_steps': ORACLE_STEPS,
+         'success_rate': hit.float().mean().item(),
+         'mean_return': ret.mean().item(),
+         'steps_to_first_solve': first_step.tolist(),
+         'successes': solved.tolist(), 'best_reward': best.tolist(),
+         'goal_switches': switches, 'wall_s': wall,
+         'wall_s_per_step': wall / steps}
+  if not bool(hit.all()):
+    out['final_fingertip_distances'] = state.task.goal_distance[
+        ~hit.to(dev)].tolist()
+  emit(out)
+  check(bool(hit.all()), f'oracle missed a goal: {out}')
+
+
+def phase_suite(torch, pkg):
+  """scripts/bench_suite.py on the card: every manipulation.ALL_NAMES task
+  through envs.batched.BatchedEnvironment.step_with_metrics under uniform
+  random actions (drawn on the card), B_SUITE episodes, SUITE_WARMUP
+  steps, then SUITE_STEPS timed steps.  Per task: env steps/s, substeps/s,
+  episodes, mean return, K3 launches (timed steps), the device idle share
+  of one step; for reach.state_dense and juggle.state_sparse, K3 held
+  against its plain version and float64 on a step's own Newton Hessian
+  and Euler matrix at (B_SUITE, nv, nv), and the Hessian for the kernels
+  line."""
+  manip, lc = pkg['manipulation'], pkg['linalg_cuda']
+  from dexterity_tpu_torch.envs import batched
+  from dexterity_tpu_torch.utils import metrics as metrics_lib
+  tasks, k3 = {}, {}
+  for name in manip.ALL_NAMES:
+    env = manip.load(*name.split('.'))
+    model, task = env.model, env.task
+    dev, dtype = model.device, model.dtype
+    benv = batched.BatchedEnvironment(env, B_SUITE)
+    lo, hi = (x.to(dev, dtype) for x in _action_bounds(
+        torch, env.action_spec()))
+    gen = torch.Generator().manual_seed(SEED + 11)
+    agen = torch.Generator(device=dev).manual_seed(SEED + 12)
+
+    def actions():
+      return lo + (hi - lo) * torch.rand(B_SUITE, lo.shape[0], generator=agen,
+                                         device=dev, dtype=dtype)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, _ = benv.reset(gen)
+    torch.cuda.synchronize()
+    reset_wall = time.perf_counter() - t0
+    metrics = metrics_lib.init(B_SUITE, dtype=dtype, device=dev)
+    for _ in range(SUITE_WARMUP):
+      state, _, metrics = benv.step_with_metrics(state, actions(), metrics,
+                                                 gen)
+    torch.cuda.synchronize()
+    reset_counts(pkg)
+    t0 = time.perf_counter()
+    for _ in range(SUITE_STEPS):
+      state, ts, metrics = benv.step_with_metrics(state, actions(), metrics,
+                                                  gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(pkg)
+    check(bool(torch.isfinite(state.data.qpos).all()),
+          f'suite {name}: non-finite state')
+    iters = model.opt.solver_iterations
+    check(launches['cholesky_solve'] >= SUITE_STEPS * task.n_substeps
+          * (iters + 1), f'suite {name} launches {launches}')
+    summ = metrics_lib.summary(metrics)
+    window = _busy_window(torch, lambda: env.step(state, actions(), gen))
+    holds = {}
+    if name in ('reach.state_dense', 'juggle.state_sparse'):
+      _, seen = _k3_holds(torch, lc, lambda: env.step(state, actions(), gen),
+                          B_SUITE, model.nv, 'step', _K3_STEP, holds)
+      k3[name] = (*seen[('cholesky_solve', 'newton_iter')],
+                  launches['cholesky_solve'], holds['step_newton_hessian'])
+    tasks[name] = {
+        'batch': B_SUITE, 'steps': SUITE_STEPS, 'warmup': SUITE_WARMUP,
+        'substeps': task.n_substeps, 'reset_wall_s': reset_wall,
+        'wall_s': wall, 'env_steps_per_s': B_SUITE * SUITE_STEPS / wall,
+        'env_substeps_per_s': B_SUITE * SUITE_STEPS * task.n_substeps / wall,
+        'episodes': summ['episodes'], 'mean_return': summ['mean_return'],
+        'mean_live_return': metrics.cur_return.mean().item(),
+        'k3_launches': launches['cholesky_solve'], 'launches': launches,
+        'step_window': window, 'k3_vs_plain': holds,
+        'peak_memory_gb': torch.cuda.max_memory_allocated() / 1e9}
+    emit({'phase': 'suite', 'task': name, **tasks[name]})
+    del state, metrics, benv, env
+    torch.cuda.empty_cache()
+  # No cut: the reference's B and timed steps.
+  emit({'phase': 'suite_summary', 'batch': B_SUITE, 'reduced': {},
+        'env_steps_per_s': {k: v['env_steps_per_s'] for k, v in tasks.items()},
+        'device_idle_share': {k: v['step_window']['device_idle_share']
+                              for k, v in tasks.items()}})
+  return k3
 
 
 def _keep_in_hand(torch, qadr):
@@ -1117,14 +1616,10 @@ def phase_kernels(torch, pkg, main):
           'turns_ms': env_extra['turns_ms'], 'bound_ms': env_bound,
           'bound_by': env_by,
           'call_ms': _call_ms(torch, lambda: lc.cholesky_solve(he, ge), 100)}
-    bound_ms, bound_by = _bound(B_PLAN, n, 4, kind)
     rows[name] = {
         'max_abs_err': max(checks[name][s] for s in sets), 'ms': ms,
-        'kernel_ms': ms, **extra, 'plain_ms': _device_ms(torch, plain, 5),
-        'bound_ms': bound_ms, 'bound_by': bound_by,
-        'library_ms': _device_ms(torch, lib, 50),
-        'call_ms': _call_ms(torch, fn, 100), 'shape': [B_PLAN, n, n],
-        'dtype': 'float32'}
+        'kernel_ms': ms, **extra,
+        **_timing_row(torch, fn, plain, lib, B_PLAN, n, kind)}
   checks['rank_deficient'] = _rank_deficient_checks(torch, lc, n, dev, gen)
   emit({'phase': 'kernel_checks', 'errors': checks})
   return rows
@@ -1758,6 +2253,10 @@ def main():
   parser.add_argument('--max-wall', type=float, metavar='SECONDS',
                       help='with --closed-loop: stop after this many seconds '
                            'and report how far the run got')
+  parser.add_argument('--hold-readings', type=int, metavar='N',
+                      help='run only the reach and juggle holds against the '
+                           'CPU float64 port on N seeds, sound and faulted '
+                           '(the readings TASK_LIMITS is set from)')
   args = parser.parse_args()
 
   import torch
@@ -1770,6 +2269,7 @@ def main():
   from dexterity_tpu_torch import manipulation
   from dexterity_tpu_torch.core import types
   from dexterity_tpu_torch.manipulation.goals import prop_orientation
+  from dexterity_tpu_torch.models import hands
   from dexterity_tpu_torch.physics import (constraint, cuda_build, linalg_cuda,
                                            smooth, step, tree_cuda)
   from dexterity_tpu_torch.physics.collision import primitives
@@ -1780,13 +2280,18 @@ def main():
              tree_cuda=tree_cuda, cuda_build=cuda_build,
              primitives=primitives, common=common, manipulation=manipulation,
              smooth=smooth, constraint=constraint, ps=ps,
-             prop_orientation=prop_orientation, structs=structs)
+             prop_orientation=prop_orientation, structs=structs,
+             hands=hands)
 
   smi = nvidia_smi_line()
   phase_probe(torch, pkg, smi)
-  if args.closed_loop is not None:
-    phase_closed_loop(torch, pkg, BAR_GOALS, BAR_STEPS, args.closed_loop,
-                      bar=True, max_wall=args.max_wall, smi=smi)
+  if args.closed_loop is not None or args.hold_readings is not None:
+    if args.closed_loop is not None:
+      phase_closed_loop(torch, pkg, BAR_GOALS, BAR_STEPS, args.closed_loop,
+                        bar=True, max_wall=args.max_wall, smi=smi)
+    else:
+      phase_hold_readings(torch, pkg,
+                          [SEED + i for i in range(args.hold_readings)])
     print(smi, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),
@@ -1794,7 +2299,6 @@ def main():
     return 0
   main_out = phase_rollouts(torch, pkg)
   phase_env(torch, pkg, main_out['task'])
-  phase_env_step(torch, pkg, main_out['task'])
   env_launches, env_k3 = phase_environment(torch, pkg)
   planner_out = phase_planner(torch, pkg)
   phase_planner_per_candidate(torch, pkg, planner_out['walls'])
@@ -1808,10 +2312,28 @@ def main():
       *(v for k, v in env_k3.items() if k.endswith(('_hessian', '_matrix'))))
   phase_juggle_size(torch, pkg, main_out['model'].device)
   phase_closed_loop(torch, pkg, CL_GOALS, CL_STEPS, SEED, smi=smi)
+  task_out = {domain: phase_task(torch, pkg, domain, variant)
+              for domain, variant in TASK_PHASES}
+  phase_reach_oracle(torch, pkg)
+  suite_k3 = phase_suite(torch, pkg)
   path_launches = {'main_path': planner_out['launches'],
                    'environment': env_launches,
                    'entry:cholesky_factor': factor_launches,
                    'entry:build_tree_sweep': tree_launches}
+  lc = pkg['linalg_cuda']
+  juggle = task_out['juggle']
+  k3_rows = [('cholesky_solve_n62_b32', _CHOL, _k3_row(
+      torch, lc, *juggle['k3_inputs'], 'juggle',
+      juggle['launches']['cholesky_solve'], juggle['k3_err']))]
+  for name, source, task in (('cholesky_solve_n62_b4096', _CHOL,
+                              'juggle.state_sparse'),
+                             ('cholesky_solve_n24_b4096', _REGS,
+                              'reach.state_dense')):
+    h, g, launches, err = suite_k3[task]
+    k3_rows.append((name, source, _k3_row(torch, lc, h, g, f'suite:{task}',
+                                          launches, err)))
+  emit({'phase': 'k3_task_sizes',
+        'rows': {name: row for name, _, row in k3_rows}})
   if args.profile:
     phase_profile(torch, pkg, main_out)
     phase_profile_solve(torch, planner_out)
@@ -1822,6 +2344,11 @@ def main():
     line.append({'name': name, 'route': 'cuda', 'source': source,
                  'replaces': replaces, 'path': path, 'launches': launches,
                  **rows[name], 'card': smi})
+  for name, source, row in k3_rows:
+    check(row['launches'] > 0, f'{name} was not launched on {row["path"]}')
+    line.append({'name': name, 'kernel': 'cholesky_solve', 'route': 'cuda',
+                 'source': source, 'replaces': f'{_LP}:74', **row,
+                 'card': smi})
   print(smi, flush=True)
   emit({'kernels': line})
   emit({'ok': True, 'device': {'platform': 'gpu',

@@ -5,7 +5,6 @@ reference: dexterity/manipulation/__init__.py).
 ALL_NAMES, TASKS_BY_DOMAIN and per-domain SUITE registries; it returns a
 compiled `GoalEnvironment` on `cuda` unless given a device.
 `load_interactive` wraps it with the stateful dm_env-style interface.
-Only the reorient domain is ported.
 """
 
 from __future__ import annotations
@@ -17,11 +16,14 @@ import torch
 
 from dexterity_tpu_torch import environment as _environment
 from dexterity_tpu_torch import task as _task
+from dexterity_tpu_torch.manipulation.tasks import juggle as _juggle
+from dexterity_tpu_torch.manipulation.tasks import reach as _reach
 from dexterity_tpu_torch.manipulation.tasks import reorient as _reorient
 
 _DOMAINS = {
     name: module
-    for name, module in (('reorient', _reorient),)
+    for name, module in (('reach', _reach), ('reorient', _reorient),
+                         ('juggle', _juggle))
     if hasattr(module, 'SUITE')
 }
 

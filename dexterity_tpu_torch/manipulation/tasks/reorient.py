@@ -11,8 +11,9 @@ any leading batch shape.
 a pose, runs `fwd_position` and keeps the first collision-free pose
 within _MAX_PLACE_SAMPLES tries (the 20th if none is free) in a
 `lax.while_loop`.  The port draws all tries of all environments up front
-from the caller's generator and runs them as one batch through
-`place_prop`, which picks each environment's first free try.
+from the caller's generator; `place_prop` runs them in rounds over the
+environments with no free try yet and picks each environment's first
+free try.
 """
 
 from __future__ import annotations
@@ -23,7 +24,6 @@ from typing import Optional
 import torch
 
 from dexterity_tpu_torch import task as task_lib
-from dexterity_tpu_torch.core import types
 from dexterity_tpu_torch.effectors import HandEffector
 from dexterity_tpu_torch.manipulation.goals import (fingertip_position,
                                                     prop_orientation)
@@ -70,14 +70,6 @@ _FREEPROP_OBSERVABLES = observations.ObservableNames(
                'angular_velocity'))
 
 SUITE = TaggedTasks()
-
-
-def first_free(free: torch.Tensor) -> torch.Tensor:
-  """Index of the first True along the last axis (the tries), or the last
-  index where none is: the try the JAX package's placement loop keeps."""
-  tries = free.shape[-1]
-  idx = torch.arange(tries, device=free.device)
-  return torch.where(free, idx, tries - 1).amin(-1)
 
 
 class ReOrient(task_lib.GoalTask):
@@ -160,27 +152,31 @@ class ReOrient(task_lib.GoalTask):
     reorient.py:143-151,182-188).
 
     pos (*batch, T, 3) and quat (*batch, T, 4) hold T tries for data's
-    batch shape; all B x T tries run through `fwd_position` as one batch.
-    Returns (data after `fwd_position` at the chosen pose, the tries
-    used, (*batch,) int64)."""
-    nb = data.qpos.ndim - 1
+    batch shape; the tries run through `fwd_position` in rounds over the
+    environments with no free try yet (hands.first_free_chunked).
+    Returns (data after `fwd_position` at the chosen pose, the tries used,
+    (*batch,) int64)."""
+    batch = tuple(data.qpos.shape[:-1])
     tries = pos.shape[-2]
-    cand = types.map_data(data, lambda x: x.unsqueeze(nb).expand(
-        x.shape[:nb] + (tries,) + x.shape[nb:]).contiguous())
+    flat = hands.flat_rows(data)
+    pos = pos.to(data.qpos.device).reshape(-1, tries, 3)
+    quat = quat.to(data.qpos.device).reshape(-1, tries, 4)
     qadr = self._prop_qadr
-    qpos = cand.qpos.clone()
-    qpos[..., qadr:qadr + 3] = pos.to(qpos)
-    qpos[..., qadr + 3:qadr + 7] = quat.to(qpos)
-    cand = physics_step.fwd_position(model, cand.replace(qpos=qpos))
-    free = ~collisions.has_collision(cand,
-                                     self._pair_mask(model, '_prop_mask'))
-    pick = first_free(free)
+    mask = self._pair_mask(model, '_prop_mask')
 
-    def chosen(x):
-      idx = pick.reshape(pick.shape + (1,) * (x.ndim - nb))
-      return torch.take_along_dim(x, idx, dim=nb).squeeze(nb)
+    def evaluate(rows, t0, t1):
+      k = t1 - t0
+      cand = hands.repeat_rows(flat, rows, k)
+      qpos = cand.qpos.clone()
+      qpos[:, qadr:qadr + 3] = pos[rows, t0:t1].reshape(-1, 3).to(qpos)
+      qpos[:, qadr + 3:qadr + 7] = quat[rows, t0:t1].reshape(-1, 4).to(qpos)
+      cand = physics_step.fwd_position(model, cand.replace(qpos=qpos))
+      free = ~collisions.has_collision(cand, mask)
+      return free.reshape(len(rows), k), qpos.reshape(len(rows), k, -1)
 
-    return types.map_data(cand, chosen), pick + 1
+    qpos, _, pick = hands.first_free_chunked(evaluate, tries, batch,
+                                             data.qpos.device)
+    return physics_step.fwd_position(model, data.replace(qpos=qpos)), pick + 1
 
   def initialize_episode(self, model, data, gen):
     """Gravity compensation for the hand; the prop placed uniformly in the

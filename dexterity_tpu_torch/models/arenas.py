@@ -1,5 +1,5 @@
 """Arenas (port of dexterity_tpu/models/arenas.py: Standard, attach,
-add_free_entity)."""
+add_free_entity, add_mocap)."""
 
 from __future__ import annotations
 
@@ -39,6 +39,20 @@ class Arena:
                                         type=S.JointType.FREE))
     self.spec.attach(child, prefix=prefix)
     return prefix
+
+  def add_mocap(self, entity, position=(0, 0, 0), quaternion=(1, 0, 0, 0),
+                name: str = 'mocap') -> str:
+    """Attaches `entity` as a free body welded to a new mocap body (the
+    juggle task drives its hands through mocap targets).  Returns the
+    mocap body's name."""
+    prefix = self.add_free_entity(entity)
+    root_name = prefix + entity.spec.worldbody.children[0].name
+    root = self.spec.find_body(root_name)
+    root.pos = np.asarray(position, np.float64)
+    root.quat = np.asarray(quaternion, np.float64)
+    self.spec.add_mocap(name, pos=position, quat=quaternion,
+                        weld_body=root_name)
+    return name
 
 
 class Standard(Arena):

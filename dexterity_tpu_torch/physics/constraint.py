@@ -4,12 +4,12 @@
 Every function takes a batch-leading Data (B, ...); the JAX package runs
 the same arithmetic per environment under vmap.  Row types (static layout,
 inactive rows masked by zero weight):
+  equality (JOINT / TENDON / CONNECT / WELD)  — bilateral
   dof frictionloss                            — Huber (force in [-fl, fl])
   joint limits (2 rows per limited joint)     — unilateral
   tendon limits (2 rows per limited tendon)   — unilateral
   contacts: top-K deepest candidate points, pyramidal cone
             (2*(condim-1) rows per point, or 1 when condim == 1)
-Equality rows are not ported yet (the reorient model has none).
 
 Parametrization (MuJoCo's): impedance d(r) from the solimp spline,
 aref = -B (J qvel) - K d(r) r with B = 2/(dmax tc), K = d/(dmax² tc² dr²),
@@ -31,8 +31,9 @@ import numpy as np
 import torch
 
 from dexterity_tpu_torch.core import types as T
-from dexterity_tpu_torch.core.types import Data, JointType, Model
+from dexterity_tpu_torch.core.types import Data, EqType, JointType, Model
 from dexterity_tpu_torch.physics import kinematics, linalg_cuda
+from dexterity_tpu_torch.physics import math as tmath
 from dexterity_tpu_torch.physics.collision import primitives
 
 # Row-type codes used for cost shaping.
@@ -71,6 +72,266 @@ def _kbi(solref, solimp, r, vel, timestep):
 # ---------------------------------------------------------------------------
 # Row assembly
 # ---------------------------------------------------------------------------
+
+
+def _kbi_shared(solref, solimp, r_imp, r, vel, timestep):
+  """Like _kbi, but the impedance's argument r_imp (a multi-row residual
+  norm) differs from the per-row stiffness residual r: MuJoCo's
+  convention for CONNECT/WELD equalities."""
+  d = impedance(solimp, r_imp)
+  dmax = solimp[..., 1]
+  tc, dr = solref[..., 0], solref[..., 1]
+  tc = torch.clamp_min(tc, 2.0 * timestep)
+  direct = solref[..., 0] <= 0
+  b_std = 2.0 / torch.clamp_min(dmax * tc, 1e-12)
+  k_std = d / torch.clamp_min(dmax * dmax * tc * tc * dr * dr, 1e-12)
+  b = torch.where(direct, -solref[..., 1], b_std)
+  k = torch.where(direct, -solref[..., 0] * d, k_std)
+  return d, -b * vel - k * r
+
+
+def _cw_geom(model: Model, data: Data, ei: int, etype: EqType, dtype):
+  """CONNECT/WELD rows of equality ei: (J (..., k, nv), res (..., k)), k =
+  3 (connect) or 6 (weld).
+
+  eq_data layout (MuJoCo's):
+    CONNECT: [0:3] the anchor in body1's frame, [3:6] the same point in
+      body2's frame (resolved at compile).
+    WELD: [0:3] the anchor in body2's frame, [3:6] body1's point (relpose
+      position), [6:10] relpose quaternion, [10] torquescale."""
+  data_e = model.eq_data[ei].to(dtype)
+  b1, b2 = model.eq_obj1[ei], model.eq_obj2[ei]
+  q1 = data.xquat[..., b1, :]
+  q2 = data.xquat[..., b2, :]
+  if etype == EqType.CONNECT:
+    a1, a2 = data_e[0:3], data_e[3:6]
+  else:
+    a1, a2 = data_e[3:6], data_e[0:3]
+  p1 = data.xpos[..., b1, :] + tmath.quat_rotate(q1, a1.expand(q1.shape[:-1]
+                                                              + (3,)))
+  p2 = data.xpos[..., b2, :] + tmath.quat_rotate(q2, a2.expand(q2.shape[:-1]
+                                                              + (3,)))
+  jac1p, jac1r = kinematics.jac_point(model, data, b1, p1)
+  jac2p, jac2r = kinematics.jac_point(model, data, b2, p2)
+  res_p = p1 - p2
+  jrows = jac1p - jac2p                                   # (..., 3, nv)
+  if etype == EqType.CONNECT:
+    return jrows, res_p
+  # Rotation residual: torquescale * vec(q2^-1 q1 qrel); its velocity
+  # Jacobian is ts * 0.5 (e_w I - [e_vec]x) R2^T (jacr1 - jacr2).
+  ts = torch.where(data_e[10] > 0, data_e[10], torch.ones_like(data_e[10]))
+  qrel = data_e[6:10]
+  qrel = qrel / torch.clamp_min(torch.linalg.norm(qrel), 1e-15)
+  e_q = tmath.quat_mul(tmath.quat_mul(tmath.quat_inv(q2), q1),
+                       qrel.expand(q1.shape))
+  res_r = ts * e_q[..., 1:]
+  e_w, e_v = e_q[..., 0], e_q[..., 1:]
+  zero = torch.zeros_like(e_w)
+  skew = torch.stack([
+      torch.stack([zero, -e_v[..., 2], e_v[..., 1]], -1),
+      torch.stack([e_v[..., 2], zero, -e_v[..., 0]], -1),
+      torch.stack([-e_v[..., 1], e_v[..., 0], zero], -1)], -2)
+  eye = torch.eye(3, dtype=dtype, device=e_q.device)
+  r2t = tmath.quat_to_mat(q2).transpose(-1, -2)
+  gmat = 0.5 * (e_w[..., None, None] * eye - skew) @ r2t
+  jrot = ts * (gmat @ (jac1r - jac2r))                    # (..., 3, nv)
+  return torch.cat([jrows, jrot], -2), torch.cat([res_p, res_r], -1)
+
+
+def _qpos_tangent(model: Model, qpos: torch.Tensor, qvel: torch.Tensor,
+                  dtype) -> torch.Tensor:
+  """d(qpos)/dt given qvel, over leading axes: the tangent map of
+  mj_integratePos at dt -> 0 (quaternion joints: q' = q (0, w_local)/2)."""
+  out = torch.zeros_like(qpos)
+  types = np.asarray(model.jnt_type)
+  scalar = np.where((types == int(JointType.HINGE))
+                    | (types == int(JointType.SLIDE)))[0]
+  if len(scalar):
+    qadr = model.index('tangent_scalar_qadr',
+                       [model.jnt_qposadr[j] for j in scalar])
+    dadr = model.index('tangent_scalar_dadr',
+                       [model.jnt_dofadr[j] for j in scalar])
+    out[..., qadr] = qvel[..., dadr]
+
+  def qdot(q, omega):
+    return 0.5 * tmath.quat_mul(q, torch.cat(
+        [torch.zeros_like(omega[..., :1]), omega], -1))
+
+  for ji in np.where(types == int(JointType.BALL))[0]:
+    qadr, dadr = model.jnt_qposadr[ji], model.jnt_dofadr[ji]
+    out[..., qadr:qadr + 4] = qdot(qpos[..., qadr:qadr + 4],
+                                   qvel[..., dadr:dadr + 3])
+  for ji in np.where(types == int(JointType.FREE))[0]:
+    qadr, dadr = model.jnt_qposadr[ji], model.jnt_dofadr[ji]
+    out[..., qadr:qadr + 3] = qvel[..., dadr:dadr + 3]
+    out[..., qadr + 3:qadr + 7] = qdot(qpos[..., qadr + 3:qadr + 7],
+                                       qvel[..., dadr + 3:dadr + 6])
+  return out
+
+
+def _cw_jdot_qvel(model: Model, data: Data, cw: list, dtype) -> torch.Tensor:
+  """J̇q̇ of every CONNECT/WELD row (concatenated in eq order), (..., n):
+  the directional derivative of the rows' velocities J(qpos) qvel along
+  qpos's time derivative, by forward-mode AD through the frames
+  (torch.func.jvp; the JAX package uses jax.jvp).  MuJoCo's equality
+  aref subtracts it, so that the row's true residual acceleration
+  J q̈ + J̇q̇ is what tracks -b vel - k res."""
+  qvel = data.qvel
+
+  def rowvels(qpos):
+    d2 = kinematics.fwd_position(model, data.replace(qpos=qpos))
+    return torch.cat([torch.einsum('...kv,...v->...k',
+                                   _cw_geom(model, d2, ei, etype, dtype)[0],
+                                   qvel)
+                      for ei, etype in cw], -1)
+
+  qdot = _qpos_tangent(model, data.qpos, qvel, dtype)
+  return torch.func.jvp(rowvels, (data.qpos,), (qdot,))[1]
+
+
+def _eq_tables(model: Model):
+  """Static per-type equality tables and the row order (numpy)."""
+  def build():
+    types = [EqType(t) for t in model.eq_type]
+    joint = [ei for ei, t in enumerate(types) if t == EqType.JOINT]
+    tendon = [ei for ei, t in enumerate(types) if t == EqType.TENDON]
+    cw = [(ei, t) for ei, t in enumerate(types)
+          if t in (EqType.CONNECT, EqType.WELD)]
+    for t in types:
+      if t not in (EqType.JOINT, EqType.TENDON, EqType.CONNECT, EqType.WELD):
+        raise NotImplementedError(t)
+    # Rows come out grouped (JOINT, TENDON, CONNECT/WELD); `order` puts
+    # them back in eq order, as the JAX package appends them.
+    start, group_row = 0, {}
+    for ei in joint + tendon:
+      group_row[ei] = [start]
+      start += 1
+    for ei, t in cw:
+      k = 3 if t == EqType.CONNECT else 6
+      group_row[ei] = list(range(start, start + k))
+      start += k
+    order = np.asarray([r for ei in range(len(types))
+                        for r in group_row[ei]], np.int64)
+    trans = np.asarray([types[ei] in (EqType.JOINT, EqType.TENDON)
+                        for ei in range(len(types))
+                        for _ in group_row[ei]], bool)
+    return dict(joint=joint, tendon=tendon, cw=cw, order=order, trans=trans)
+  return model.cached('eq_tables', build)
+
+
+def _poly(coef, x):
+  """MuJoCo's quartic coupling: (poly(x), poly'(x)) for coef (n, 5)."""
+  powers = torch.stack([x ** k for k in range(5)], -1)
+  dpowers = torch.stack([(k + 1) * x ** k for k in range(4)], -1)
+  return ((coef * powers).sum(-1), (coef[:, 1:5] * dpowers).sum(-1))
+
+
+def _eq_rows(model: Model, data: Data, dtype):
+  """Equality rows, in eq order: (J (..., n, nv), aref (..., n),
+  d (..., n), invweight (n,), transmitted (n,) static bool: True for the
+  dof-space JOINT/TENDON rows, False for CONNECT/WELD wrenches)."""
+  tabs = _eq_tables(model)
+  h = model.opt.timestep
+  nv = model.nv
+  bshape = data.qpos.shape[:-1]
+  js, refs, ds, iws = [], [], [], []
+
+  def const(key, build):
+    return model.const(('eq', key), build, dtype)
+
+  if tabs['joint']:
+    ids = tabs['joint']
+    j1 = [model.eq_obj1[e] for e in ids]
+    j2 = [model.eq_obj2[e] for e in ids]
+    has2_np = np.asarray([j >= 0 for j in j2])
+    a1 = model.index('eq_joint_a1', [model.jnt_qposadr[j] for j in j1])
+    d1_np = np.asarray([model.jnt_dofadr[j] for j in j1])
+    a2 = model.index('eq_joint_a2', [model.jnt_qposadr[max(j, 0)]
+                                     for j in j2])
+    d2_np = np.asarray([model.jnt_dofadr[max(j, 0)] for j in j2])
+    d1 = model.index('eq_joint_d1', d1_np)
+    d2 = model.index('eq_joint_d2', d2_np)
+    has2 = const('joint_has2', lambda: has2_np.astype(float))
+    eid = model.index('eq_joint_ids', ids)
+    coef = model.eq_data[eid, :5].to(dtype)
+    qpos0 = model.qpos0.to(dtype)
+    q1 = data.qpos[..., a1] - qpos0[a1]
+    q2 = (data.qpos[..., a2] - qpos0[a2]) * has2
+    poly, dpoly = _poly(coef, q2)
+    dpoly2 = dpoly * has2
+    e1 = const('joint_e1', lambda: np.eye(nv)[d1_np])
+    e2 = const('joint_e2', lambda: np.eye(nv)[d2_np] * has2_np[:, None])
+    js.append(e1 - dpoly2[..., None] * e2)
+    vel = data.qvel[..., d1] - dpoly2 * data.qvel[..., d2]
+    dd, aref = _kbi(model.eq_solref[eid].to(dtype),
+                    model.eq_solimp[eid].to(dtype), q1 - poly, vel, h)
+    refs.append(aref)
+    ds.append(dd)
+    iws.append(model.dof_invweight0[d1].to(dtype)
+               + model.dof_invweight0[d2].to(dtype) * has2)
+
+  if tabs['tendon']:
+    ids = tabs['tendon']
+    t1 = model.index('eq_tendon_t1', [model.eq_obj1[e] for e in ids])
+    t2_np = np.asarray([model.eq_obj2[e] for e in ids])
+    t2 = model.index('eq_tendon_t2', np.maximum(t2_np, 0))
+    has2 = const('tendon_has2', lambda: (t2_np >= 0).astype(float))
+    eid = model.index('eq_tendon_ids', ids)
+    data_e = model.eq_data[eid].to(dtype)
+    tm = model.tendon_moment.to(dtype)
+    # The tendon lengths at qpos0, the couplings' zero.
+    ref0 = model.cached(('eq_tendon_ref0', dtype), lambda: tm @ (
+        model.qpos0.to(dtype)[model.index(
+            'dof_qposadr', kinematics._dof_qposadr(model))]))
+    l1 = data.ten_length[..., t1] - ref0[t1]
+    l2 = (data.ten_length[..., t2] - ref0[t2]) * has2
+    poly, dpoly = _poly(data_e[:, :5], l2)
+    dpoly2 = dpoly * has2
+    res = torch.where(has2 > 0, l1 - poly, l1 - data_e[:, 0])
+    js.append(tm[t1] - dpoly2[..., None] * tm[t2])
+    vel = data.ten_velocity[..., t1] - dpoly2 * data.ten_velocity[..., t2]
+    dd, aref = _kbi(model.eq_solref[eid].to(dtype),
+                    model.eq_solimp[eid].to(dtype), res, vel, h)
+    refs.append(aref)
+    ds.append(dd)
+    iws.append(model.tendon_invweight0[t1].to(dtype)
+               + model.tendon_invweight0[t2].to(dtype) * has2)
+
+  if tabs['cw']:
+    jdq_all = _cw_jdot_qvel(model, data, tabs['cw'], dtype)
+    off = 0
+    for ei, etype in tabs['cw']:
+      k = 3 if etype == EqType.CONNECT else 6
+      b1, b2 = model.eq_obj1[ei], model.eq_obj2[ei]
+      jrows, res = _cw_geom(model, data, ei, etype, dtype)
+      vel = torch.einsum('...kv,...v->...k', jrows, data.qvel)
+      # The impedance comes once per equality, from the norm of its whole
+      # residual; the aref subtracts the J̇q̇ bias.
+      r_norm = torch.linalg.norm(res, dim=-1, keepdim=True)
+      dd, aref = _kbi_shared(model.eq_solref[ei].to(dtype),
+                             model.eq_solimp[ei].to(dtype), r_norm, res,
+                             vel, h)
+      js.append(jrows)
+      refs.append(aref - jdq_all[..., off:off + k])
+      ds.append(dd.expand(res.shape))
+      iw = model.body_invweight0.to(dtype)
+      iws.append(torch.cat([(iw[b1, 0] + iw[b2, 0]).expand(3),
+                            (iw[b1, 1] + iw[b2, 1]).expand(k - 3)]))
+      off += k
+
+  order = model.index('eq_order', tabs['order'])
+  J = torch.cat([j.expand(bshape + j.shape[-2:]) for j in js], -2)
+  return (J[..., order, :], torch.cat(refs, -1)[..., order],
+          torch.cat(ds, -1)[..., order], torch.cat(iws)[order],
+          tabs['trans'])
+
+
+def _eq_rows_blocks(model: Model, data: Data, dtype):
+  if not model.neq:
+    z = data.qpos.new_zeros(data.qpos.shape[:-1] + (0,))
+    return (data.qpos.new_zeros(data.qpos.shape[:-1] + (0, model.nv)), z, z,
+            data.qpos.new_zeros((0,)), np.zeros(0, bool))
+  return _eq_rows(model, data, dtype)
 
 
 def _fl_rows(model: Model, data: Data, dtype):
@@ -356,13 +617,15 @@ def _static_block(model: Model, parts, dtype):
 def assemble_blocks(model: Model, data: Data, contact_groups=None):
   """Block-structured constraint assembly (the solver's form).
 
-  Reference efc ordering preserved across blocks: frictionloss, joint
-  limits, tendon limits, contacts (from `contact_groups`, or from
-  data.contact when None)."""
-  if model.neq:
-    raise NotImplementedError('equality constraint rows are not ported yet')
+  Reference efc ordering preserved across blocks: equalities,
+  frictionloss, joint limits, tendon limits, contacts (from
+  `contact_groups`, or from data.contact when None)."""
   dtype = data.qpos.dtype
   blocks = []
+  if model.neq:
+    ej, er, ed, ei, etrans = _eq_rows(model, data, dtype)
+    blocks.append(DenseBlock(ej, er, _bigd(ed, ei, dtype), _BILATERAL,
+                             None, etrans))
   static_parts = []
   fdof, fr, fd, fi, ffl = _fl_rows(model, data, dtype)
   if len(fdof):
@@ -394,7 +657,8 @@ class Rows(NamedTuple):
   fl: torch.Tensor         # (B, nrow) frictionloss bound (FL rows only)
   kind: np.ndarray         # (nrow,) static row-type codes
   # Static: True for rows whose force goes through the joints (limits,
-  # frictionloss); False for contacts.
+  # frictionloss, JOINT/TENDON equalities); False for contacts and
+  # CONNECT/WELD wrenches.
   transmitted: np.ndarray  # (nrow,) bool
 
 
@@ -431,12 +695,9 @@ def _contact_block(model: Model, data: Data, dtype, groups=None):
 
 
 def assemble(model: Model, data: Data) -> Rows:
-  """Dense concatenated rows in MuJoCo's efc order (frictionloss, joint
-  limits, tendon limits, contacts from data.contact); the solver uses
-  assemble_blocks.  Equality rows are not ported: a model with neq > 0
-  raises, as assemble_blocks does."""
-  if model.neq:
-    raise NotImplementedError('equality constraint rows are not ported yet')
+  """Dense concatenated rows in MuJoCo's efc order (equalities,
+  frictionloss, joint limits, tendon limits, contacts from data.contact);
+  the solver uses assemble_blocks."""
   dtype = data.qpos.dtype
   bshape = data.qpos.shape[:-1]
   nv = model.nv
@@ -445,6 +706,7 @@ def assemble(model: Model, data: Data) -> Rows:
     return torch.as_tensor(j, dtype=dtype, device=data.qpos.device).expand(
         bshape + j.shape)
 
+  ej, er, ed, ei, etrans = _eq_rows_blocks(model, data, dtype)
   fdof, fr, fd, fi, ffl = _fl_rows(model, data, dtype)
   fj = np.zeros((len(fdof), nv))
   fj[np.arange(len(fdof)), fdof] = 1.0
@@ -454,11 +716,13 @@ def assemble(model: Model, data: Data) -> Rows:
   tj, tr, td, ti = _ten_limit_rows(model, data, dtype)
   cj, cr, cd, ci = _contact_rows(model, data, dtype)
 
-  n_f, n_l, n_t, n_c = len(fdof), len(ldof), tj.shape[0], cj.shape[-2]
+  n_e, n_f, n_l = ej.shape[-2], len(fdof), len(ldof)
+  n_t, n_c = tj.shape[0], cj.shape[-2]
   kind = np.concatenate([
+      np.full(n_e, _BILATERAL, np.int32),
       np.full(n_f, _FRICTIONLOSS, np.int32),
       np.full(n_l + n_t + n_c, _UNILATERAL, np.int32)])
-  transmitted = np.concatenate([np.ones(n_f + n_l + n_t, bool),
+  transmitted = np.concatenate([etrans, np.ones(n_f + n_l + n_t, bool),
                                 np.zeros(n_c, bool)])
 
   def rowvec(x):
@@ -466,11 +730,14 @@ def assemble(model: Model, data: Data) -> Rows:
 
   zeros = data.qpos.new_zeros(bshape + (n_l + n_t + n_c,))
   return Rows(
-      J=torch.cat([const_rows(fj), const_rows(lj), const_rows(tj), cj], -2),
-      aref=torch.cat([fr, lr, tr, cr], -1),
-      d=torch.cat([fd, ld, td, cd], -1),
-      invweight=torch.cat([rowvec(fi), rowvec(li), rowvec(ti), ci], -1),
-      fl=torch.cat([ffl, zeros], -1), kind=kind, transmitted=transmitted)
+      J=torch.cat([ej, const_rows(fj), const_rows(lj), const_rows(tj), cj],
+                  -2),
+      aref=torch.cat([er, fr, lr, tr, cr], -1),
+      d=torch.cat([ed, fd, ld, td, cd], -1),
+      invweight=torch.cat([rowvec(ei), rowvec(fi), rowvec(li), rowvec(ti),
+                           ci], -1),
+      fl=torch.cat([data.qpos.new_zeros(bshape + (n_e,)), ffl, zeros], -1),
+      kind=kind, transmitted=transmitted)
 
 
 # ---------------------------------------------------------------------------
@@ -680,8 +947,9 @@ def solve(model: Model, data: Data, qfrc_smooth: torch.Tensor,
 
   fs = [_blk_force_weight(b, x)[0] for b, x in zip(blocks, xs)]
   qfrc_constraint = sum(_blk_rmatvec(b, f) for b, f in zip(blocks, fs))
-  # Joint-transmitted share (limits, frictionloss): what a joint torque
-  # sensor sees; contacts are external.
+  # Joint-transmitted share (limits, frictionloss, JOINT/TENDON
+  # equalities): what a joint torque sensor sees; contacts and
+  # CONNECT/WELD wrenches are external.
   axis_terms = []
   for b, f in zip(blocks, fs):
     if isinstance(b, StaticBlock):

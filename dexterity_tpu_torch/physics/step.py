@@ -140,11 +140,16 @@ def _finish_step(model: Model, data: Data, pre: dict,
   contact_groups = primitives.collide_group_planes(
       model, gpos, gmat, dtype, selinfo=selinfo)
 
-  data = data.replace(
+  updates = dict(
       qM=_major(pre['qm']), cdof=_major(pre['cdof6']).transpose(-1, -2),
       ten_length=_major(pre['ten_length']),
       ten_velocity=_major(pre['ten_velocity']),
       qfrc_bias=_major(pre['qfrc_bias']))
+  if model.neq:
+    # CONNECT/WELD rows read batch-leading body poses.
+    updates.update(xpos=_major(pre['xpos_p']).transpose(-1, -2),
+                   xquat=_major(pre['xquat_p']).transpose(-1, -2))
+  data = data.replace(**updates)
   data = smooth.actuation(model, data)
   data = smooth.passive(model, data)
   xfrc = smooth.xfrc_planes(model, pre['xipos3'], pre['cdof6'],

@@ -491,3 +491,58 @@ def test_environment_reset_and_step_on_card():
   assert bool(torch.isfinite(state.data.qvel).all())
   for key, obs in ts.observation.items():
     assert obs.shape[0] == 4 and bool(torch.isfinite(obs).all()), key
+
+
+def _first_newton_hessian(fn):
+  """Runs fn with cholesky_solve's inputs captured; returns the first
+  (H, g) the Newton iteration passed it."""
+  seen, real = {}, LC.cholesky_solve
+
+  def capture(h, g):
+    seen.setdefault('hg', (h.detach().clone(), g.detach().clone()))
+    return real(h, g)
+  LC.cholesky_solve = capture
+  try:
+    fn()
+  finally:
+    LC.cholesky_solve = real
+  return seen['hg']
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('domain,variant,n,design',
+                         [('juggle', 'state_sparse', 62, 'shared'),
+                          ('reach', 'state_dense', 24, 'registers')])
+def test_k3_on_the_new_tasks_newton_hessians(domain, variant, n, design):
+  """K3 on a step's own first Newton Hessian of the juggle (n = 62, the
+  shared design, 20 equality rows) and reach (n = 24, the register
+  design) environments on the card, for 4 episodes (4, n, n) and for one
+  without a batch axis (1, n, n), against its plain version and a float64
+  solve: within 100 cond eps of the solution's scale (at least 1e-4),
+  backward error under 1e-4."""
+  from dexterity_tpu_torch.utils import structs
+  _cuda()
+  assert LC._design(n, torch.float32) == design
+  env = manipulation.load(domain, variant)
+  state, _ = env.reset(torch.Generator().manual_seed(2), (4,))
+  act = torch.zeros(4, env.model.nu, device='cuda')
+  one = structs.tree_map(lambda x: x[0], state)
+  for st, a, rows in ((state, act, 4), (one, act[0], 1)):
+    h, g = _first_newton_hessian(lambda: env.step(st, a, torch.Generator()))
+    assert h.shape == (rows, n, n)
+    LC.reset_launches()
+    x = LC.cholesky_solve(h, g)
+    torch.cuda.synchronize()
+    assert LC.launches['cholesky_solve'] == 1
+    h64, g64 = h.double(), g.double()
+    x64 = torch.linalg.solve(h64, g64)
+    ev = torch.linalg.eigvalsh(h64)
+    cond = (ev[:, -1] / ev[:, 0]).max().item()
+    tol = max(1e-4, 100 * cond * 6e-8) * x64.abs().max().item()
+    assert (x - LC.solve_plain(h, g)).abs().max().item() <= tol
+    assert (x.double() - x64).abs().max().item() <= tol
+    res = (h64 @ x.double()[..., None])[..., 0] - g64
+    bwd = (res.abs().amax(-1) / (n * h64.abs().amax((-2, -1))
+                                 * x.double().abs().amax(-1)
+                                 + g64.abs().amax(-1))).max().item()
+    assert bwd <= 1e-4

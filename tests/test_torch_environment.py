@@ -39,6 +39,7 @@ from dexterity_tpu_torch.envs import batched as pbatched
 from dexterity_tpu_torch.manipulation.goals import fingertip_position as pfp
 from dexterity_tpu_torch.manipulation.goals import prop_orientation as ppo
 from dexterity_tpu_torch.manipulation.tasks import reorient as preorient
+from dexterity_tpu_torch.models import hands as phands
 from dexterity_tpu_torch.models import observables as pobs
 from dexterity_tpu_torch.physics import math as pmath
 from dexterity_tpu_torch.physics import step as pstep
@@ -325,9 +326,9 @@ def test_observable_options_are_validated(envs):
 def test_first_free_picks_the_first_free_try_or_the_last():
   free = torch.tensor([[False, True, True], [True, False, False],
                        [False, False, False], [False, False, True]])
-  np.testing.assert_array_equal(preorient.first_free(free).numpy(),
+  np.testing.assert_array_equal(phands.first_free(free).numpy(),
                                 [1, 0, 2, 2])
-  assert int(preorient.first_free(torch.tensor([False, True]))) == 1
+  assert int(phands.first_free(torch.tensor([False, True]))) == 1
 
 
 def test_place_prop_rejects_a_penetrating_try_as_jax_does(envs, jax_reset,
@@ -644,9 +645,10 @@ def test_episode_semantics_match_jax(envs, jax_reset, jax_step):
 
 
 def test_load_names_and_errors():
-  assert pmanip.ALL_TASKS == (('reorient', 'state_dense'),)
-  assert pmanip.ALL_NAMES == ['reorient.state_dense']
-  assert pmanip.TASKS_BY_DOMAIN == {'reorient': ('state_dense',)}
+  assert pmanip.ALL_TASKS == jmanip.ALL_TASKS
+  assert pmanip.ALL_NAMES == jmanip.ALL_NAMES
+  assert pmanip.TASKS_BY_DOMAIN == jmanip.TASKS_BY_DOMAIN
+  assert ('reorient', 'state_dense') in pmanip.ALL_TASKS
   with pytest.raises(ValueError, match='Unknown domain'):
     pmanip.load('nope', 'state_dense', **F64)
   with pytest.raises(ValueError, match='Unknown task'):

@@ -62,7 +62,11 @@ def test_importing_the_port_loads_no_jax():
           '             "effector", "task", "environment", "envs.batched",\n'
           '             "models.observables", "utils.collisions",\n'
           '             "utils.metrics", "utils.structs", "hints",\n'
-          '             "exception"):\n'
+          '             "exception", "models.hands", "models.props",\n'
+          '             "models.arenas", "manipulation.tasks.reach",\n'
+          '             "manipulation.tasks.juggle",\n'
+          '             "manipulation.goals.fingertip_position",\n'
+          '             "physics.constraint"):\n'
           '  assert "dexterity_tpu_torch." + name in sys.modules, name\n'
           'bad = [m for m in sys.modules if m.split(".")[0] in '
           '("jax", "dexterity_tpu")]\n'
@@ -100,3 +104,23 @@ def test_entry_points_raise_without_a_card(monkeypatch):
   with pytest.raises(RuntimeError, match='no CUDA device'):
     types.resolve_device(None)
   assert types.resolve_device('cpu') == torch.device('cpu')
+
+
+@pytest.mark.parametrize('domain,task', [('reach', 'state_dense'),
+                                         ('reach', 'state_sparse'),
+                                         ('juggle', 'state_sparse')])
+def test_reach_and_juggle_load_on_a_card_or_the_cpu(monkeypatch, domain,
+                                                    task):
+  """Without a card, load / load_interactive raise unless the caller asks
+  for the CPU; with device='cpu' the model lives there."""
+  from dexterity_tpu_torch import manipulation
+  monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+  with pytest.raises(RuntimeError, match='no CUDA device'):
+    manipulation.load(domain, task)
+  with pytest.raises(RuntimeError, match='no CUDA device'):
+    manipulation.load_interactive(domain, task)
+  with pytest.raises(RuntimeError, match='no CUDA device'):
+    manipulation.build_task(domain, task).compile()
+  env = manipulation.load(domain, task, device='cpu')
+  assert env.model.device == torch.device('cpu')
+  assert env.model.dtype == torch.float32

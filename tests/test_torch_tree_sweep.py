@@ -59,8 +59,8 @@ def _inputs(pm, seed):
   qpos[qa + 3:qa + 7] = 1.3 * q / np.linalg.norm(q, axis=0)  # not unit
   qvel = rng.normal(size=(pm.nv, _B))
   mp = rng.normal(size=(3 * pm.nmocap, _B))
-  mq = rng.normal(size=(4 * pm.nmocap, _B))
-  mq /= np.linalg.norm(mq.reshape(4, pm.nmocap, _B), axis=0).reshape(1, -1)
+  mq = rng.normal(size=(4, pm.nmocap, _B))
+  mq = (mq / np.linalg.norm(mq, axis=0)).reshape(4 * pm.nmocap, _B)
   return qpos, qvel, mp, mq
 
 
@@ -141,6 +141,61 @@ def test_plain_matches_jax_precompute_planes(models, which):
     a = np.asarray(want[key]).reshape(got[key].shape)
     np.testing.assert_allclose(got[key].numpy(), a, rtol=1e-9, atol=1e-12,
                                err_msg=key)
+
+
+@pytest.fixture(scope='module')
+def juggle_models():
+  jtask = manipulation.build_task('juggle', 'state_sparse')
+  ptask = pmanip.build_task('juggle', 'state_sparse')
+  return jtask.compile(), ptask.compile(device='cpu', dtype=torch.float64)
+
+
+def test_juggle_mocap_rows_are_component_major(juggle_models):
+  """Juggle welds its two hands to two mocap bodies (nmocap = 2), where
+  the mocap row conventions part.  The sweep supports the model (as the
+  JAX package's does), and with rows c·nmocap + m given component-major:
+  the plain version equals JAX's `_reference_sweep` fed the same rows (to
+  float32 rounding, as above; reading 9.8e-7 of scale), each mocap body's
+  world pose is its own rows, and the plain version equals JAX's
+  `_precompute_planes` fed (nmocap, c, B) planes (1e-9)."""
+  jm, pm = juggle_models
+  assert pm.nmocap == 2
+  assert tree_cuda.supports(pm) == tree_pallas.supports(jm) is True
+  ins = _inputs(pm, 3)
+  got = _port(pm, ins)
+  ref = tree_pallas._reference_sweep(jm, *(jnp.asarray(x) for x in ins))
+  for key in _KEYS:
+    a, b = np.asarray(ref[key]), got[key].numpy()
+    assert a.shape == b.shape, key
+    scale = max(np.abs(a).max(), 1.0)
+    np.testing.assert_allclose(b, a, rtol=0, atol=_REF_RTOL * scale,
+                               err_msg=key)
+  nb, nm = pm.nbody, pm.nmocap
+  for m in range(nm):
+    body = pm.body_mocapid.index(m)
+    for c in range(3):
+      np.testing.assert_allclose(got['xpos'][c * nb + body].numpy(),
+                                 ins[2][c * nm + m], atol=1e-12)
+    for c in range(4):
+      np.testing.assert_allclose(got['xquat'][c * nb + body].numpy(),
+                                 ins[3][c * nm + m], atol=1e-12)
+  qpos, qvel, mp, mq = ins
+  jp = jstep._precompute_planes(
+      jm, jnp.asarray(qpos), jnp.asarray(qvel),
+      jnp.asarray(mp.reshape(3, nm, _B).transpose(1, 0, 2)),
+      jnp.asarray(mq.reshape(4, nm, _B).transpose(1, 0, 2)))
+  for key, want in (('xpos', jp['xpos_p']), ('xquat', jp['xquat_p']),
+                    ('cdof', jp['cdof6']), ('qm', jp['qm']),
+                    ('qfrc_bias', jp['qfrc_bias'])):
+    a = np.asarray(want).reshape(got[key].shape)
+    np.testing.assert_allclose(got[key].numpy(), a, rtol=1e-9, atol=1e-12,
+                               err_msg=key)
+  # A mocap-major reading of the same rows (tests/test_tree_pallas.py's
+  # reshape) would put the wrong numbers on a mocap body at nmocap = 2.
+  mocap_major = ins[2].reshape(nm, 3, _B)[1]
+  body = pm.body_mocapid.index(1)
+  assert not np.allclose(got['xpos'][np.arange(3) * nb + body].numpy(),
+                         mocap_major)
 
 
 def _segments(ti, tf):
