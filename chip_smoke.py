@@ -107,10 +107,37 @@ non-zero otherwise, and on any failed check.  Phases, one JSON line each:
      (register design), each held in phase 9 or 11: device time, bound,
      plain version, library call, per-call time; these rows join the
      kernels line.
+  13. ilqr: ILQR.solve at scripts/eval_ilqr.py's configuration (H = 32,
+     4 iterations, 6 line-search steps, refactor every 4, 3 substeps,
+     the keep-in-hand shaping as a cost) for 8 goals from
+     GoalEnvironment.reset, after a warm-up solve at H = 2: wall,
+     solves/s, peak memory, an estimate of the device busy time and idle
+     share (one profiled window per stage, weighted by its count in a
+     solve), K1 and K2 launches exactly (primal and tangent: K1 = 2HS +
+     cS, K2 = 6HS + 7cS per iteration, c = 1 linearization pass), finite
+     actions within the bounds, each iteration's cost no higher than
+     its alpha = 0 candidate's; the linearization in goal 0's 32 blocks
+     against the CPU float64 port (LIN_LIMITS in the blocks both
+     precisions resolve, for the card and the CPU float32 port; also
+     read under TF32 and a bfloat16 K2 tangent, the faults), and each
+     tangent launch against its plain rule and float64 on the path's own
+     inputs; the steps of the first backward pass whose gains are NaN,
+     on the card and on the CPU float64 port.
+  14. ilqr_k3: the same at refactor every 1 (K3 and its rule), H = 4,
+     1 iteration, 2 goals: K3's launches exactly, its tangent launch held.
+  15. sqp: SQP.solve, H = 32, 1 iteration, 8 goals: wall, launches
+     exactly, a finite plan within the bounds, the cost no higher than
+     the alpha = 0 candidate's.
+  16. hybrid: scripts/eval_ilqr.py's hybrid control step (predictive
+     sampling's solve_batch, warm_start, the two trajectory costs that
+     pick the seed, one iLQR iteration, env.step) for 4 goals and 1
+     control step (cut from 2 to keep the script inside its limit): wall
+     per control step and its parts.
   --profile adds host and device time by stage and device time by kernel
   over one planning control step, and the device busy time and idle share
   over one solve_batch.
-Then the `kernels` line (K1-K6, and K3's rows at the new tasks' sizes),
+Then the `kernels` line (K1-K6, K3's rows at the new tasks' sizes, and
+K1, K2 and K3 on the `ilqr` path at the linearization's shapes),
 the card's name and power limit, and as the last line {"ok": true,
 "device": {...}}.
 
@@ -132,6 +159,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import itertools
 import json
 import os
 import re
@@ -182,6 +210,51 @@ CL_GOALS = 4
 CL_STEPS = 10
 BAR_GOALS = 32
 BAR_STEPS = 300
+# Gradient planners: scripts/eval_ilqr.py's configuration (:36-99, as
+# EVAL_ILQR_r05.json records it): H = 32, 4 iterations, 6 line-search
+# steps, ctrl_cost 1e-3, reg_init 1e-4, 3 plan substeps, refactor every 4
+# (the ILQRConfig defaults otherwise: 4 Newton / 6 line-search
+# iterations, contact budget 16/16, implicit damping, no
+# self-collision), the keep-in-hand shaping as a cost; ILQR_GOALS goals
+# in one batch.  Phase ilqr_k3 runs it at refactor every 1 (K3), cut to
+# H = 4, 1 iteration, 2 goals; phase sqp with SQP_ITERATIONS iteration(s).
+ILQR = dict(horizon=32, iterations=4, line_search_steps=6, ctrl_cost=1e-3,
+            reg_init=1e-4, plan_substeps=3, solver_refactor_every=4)
+ILQR_GOALS = 8
+ILQR_K3 = dict(horizon=4, iterations=1, solver_refactor_every=1)
+ILQR_K3_GOALS = 2
+SQP_ITERATIONS = 1
+# The hybrid control step: scripts/eval_ilqr.py's predictive-sampling
+# configuration (:91-99) and one iLQR iteration, HYBRID_GOALS goals for
+# HYBRID_STEPS control steps.
+HYBRID_PS = dict(horizon=10, num_samples=256, num_knots=4, iterations=2,
+                 noise_decay=0.5, failure_penalty=30.0, solver_iterations=4,
+                 ls_iterations=6, solver_refactor_every=2, plan_substeps=3)
+HYBRID_GOALS = 4
+HYBRID_STEPS = 1
+# The linearization hold (PERF.md §2): fx, fu, cx, cu in each (goal 0, t)
+# block of the first iteration's nominal rollout (H = 32 states) against
+# the CPU float64 port at the same (x, u), relative to the block's
+# max-abs.  A block is held where both precisions resolve it: the float64
+# port's Jacobian moves by at most 1e-9 of its max-abs under the relative
+# changes of the states in LIN_NUDGES_F64 (tests/torch_planners.py's
+# rule), and the CPU float32 port's by at most LIN_RESOLVED under
+# LIN_NUDGES_F32 (float32's own rounding).  In the other blocks the JAX
+# package's float32 linearization parts from its float64 one as far as
+# the port's does (tests/test_torch_ilqr_float32.py): they are read and
+# must be finite.  Limits per quantity: the smallest 1, 2 or 5 x 10^k at
+# least 3x the largest sound reading in a held block (the card, the CPU
+# float32 port), kept under the faulted readings (TF32 products, K2's
+# tangent in bfloat16).  Read on the H100 in the held blocks t = 4-6
+# (PERF.md §2): sound fx 3.18e-4, fu 7.82e-5, cx 5.30e-7, cu 6.82e-8;
+# TF32 fx 1.20, fu 0.807; bfloat16 fx 1.64e-2, fu 8.21e-3 (neither fault
+# moves cx or cu).  LIN_WITNESS: the goals whose first backward pass is
+# also run on the CPU float64 port (NaN gains).
+LIN_NUDGES_F64 = (4e-15, -4e-15)
+LIN_NUDGES_F32 = (1.2e-7, -1.2e-7)
+LIN_RESOLVED = 1e-3
+LIN_LIMITS = dict(fx=1e-3, fu=5e-4, cx=2e-6, cu=5e-7)
+LIN_WITNESS = (0, ILQR_GOALS - 1)
 
 # Reach and juggle phases: manipulation.load of each, reset of B_EPISODES
 # episodes and ENV_STEPS steps, the first ENV_CHECKED held against the CPU.
@@ -224,6 +297,8 @@ _LP = 'dexterity_tpu/physics/linalg_pallas.py'
 _TP = 'dexterity_tpu/physics/tree_pallas.py'
 _CHOL = 'dexterity_tpu_torch/csrc/cholesky.cu'
 _REGS = 'dexterity_tpu_torch/csrc/cholesky_regs.cu'
+# The H100's L2 cache (50 MB).
+L2_BYTES = 50 * 2 ** 20
 _TREE = 'dexterity_tpu_torch/csrc/tree_sweep.cu'
 KERNELS = [
     ('cholesky_solve_factor', f'{_LP}:135', _REGS, 'main_path'),
@@ -1415,6 +1490,538 @@ def phase_closed_loop(torch, pkg, goals, max_steps, seed, bar=False,
   emit({'phase': 'closed_loop_bar' if bar else 'closed_loop', **summary})
 
 
+# ---------------------------------------------------------------------------
+# Gradient planners: iLQR, SQP and the hybrid MPC step
+# ---------------------------------------------------------------------------
+
+
+def _keep_in_hand_cost(torch, qadr):
+  """scripts/eval_ilqr.py's keep_in_hand_cost (:65-71), the shaping of
+  _keep_in_hand with its sign flipped: the planners' batched
+  extra_cost_fn."""
+  reward = _keep_in_hand(torch, qadr)
+  return lambda model, data, goals: -reward(model, data, goals)
+
+
+def _ilqr_launches(cfg, substeps):
+  """K1, K2 and K3 launches of one ILQR.solve (or SQP.solve) with every
+  substep's Newton at 4 iterations: the rollout and the line search (or
+  merit rollout) run H control steps each, the linearization one
+  forward-mode pass (c = 1).  Refactor every 4: 1 K1 + 3 K2 per substep,
+  plus one tangent K2 for each in the linearization; refactor every 1: 4
+  K3 per substep, plus one tangent K3 each."""
+  h, s, c = cfg['horizon'], substeps, 1
+  its = cfg['iterations']
+  if cfg['solver_refactor_every'] == 1:
+    return {'cholesky_solve_factor': 0, 'cholesky_resolve_const': 0,
+            'cholesky_solve': its * (4 * 2 * h * s + 8 * c * s)}
+  return {'cholesky_solve_factor': its * (2 * h * s + c * s),
+          'cholesky_resolve_const': its * (3 * 2 * h * s + 7 * c * s),
+          'cholesky_solve': 0}
+
+
+def _solve_recording(planner, *args):
+  """planner.solve(*args) with each iteration's selection recorded:
+  returns the solve's result and, per iteration, (the alpha = 0
+  candidate's cost, the cost kept), both computed in one batch."""
+  seen, real = [], planner._select
+
+  def select(us, cands, costs, cost_prev, reg):
+    out = real(us, cands, costs, cost_prev, reg)
+    seen.append((costs[0].clone(), out[1].clone()))
+    return out
+
+  planner._select = select
+  try:
+    return planner.solve(*args), seen
+  finally:
+    del planner._select
+
+
+def _check_no_regress(torch, label, iters):
+  """Every iteration keeps a cost no higher than its alpha = 0
+  candidate's (the nominal replayed in the same batch), so a solve never
+  regresses; returns the per-iteration costs."""
+  for i, (c0, kept) in enumerate(iters):
+    c0 = torch.where(torch.isnan(c0), torch.full_like(c0, float('inf')), c0)
+    check(bool((kept <= c0).all()),
+          f'{label} iteration {i}: kept {kept.tolist()} above the '
+          f'alpha = 0 cost {c0.tolist()}')
+  return [{'alpha0': c0.tolist(), 'kept': kept.tolist()}
+          for c0, kept in iters]
+
+
+def _tangent_holds(torch, lc, seen, label):
+  """Each captured tangent launch (_capture_first on the rules' entries
+  _rule_resolve and _rule_solve) against its plain rule and float64 on
+  the path's own inputs: K2's (fac, dg) (the matrix it factors is
+  L L^T), K3's (H, dg - dH x)."""
+  out = {}
+  for (entry, _), (a, g) in sorted(seen.items()):
+    # Rows whose tangent rhs is zero (a unit tangent the step does not
+    # reach) solve to zero and have no backward error to read.
+    live = g.abs().amax(-1) > 0
+    a, g = a[live], g[live]
+    if entry == '_rule_solve':
+      errs = _vs_plain(torch, lc, 'cholesky_solve', a, g, f'{label} {entry}')
+    else:
+      f64 = a.double()
+      ll = (torch.tril(f64, -1) + torch.diag_embed(
+          1 / torch.diagonal(f64, dim1=-2, dim2=-1)))
+      errs = _vs_plain(torch, lc, 'cholesky_resolve_const', ll @ ll.mT, g,
+                       f'{label} {entry}', fac=a)
+    out.update({f'{entry}{k}': v for k, v in errs.items()})
+  return out
+
+
+_LIN_NAMES = ('fx', 'fu', 'cx', 'cu')
+
+
+def _lin_blocks(torch, got, ref):
+  """Per (goal, t) block, the max-abs error of each of (fx, fu, cx, cu)
+  against the reference's, relative to the reference block's max-abs:
+  {name: (G, H)} on the CPU in float64."""
+  out = {}
+  for name, a, b in zip(_LIN_NAMES, got, ref):
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    err = (a - b).abs().flatten(2).amax(-1)
+    out[name] = err / b.abs().flatten(2).amax(-1).clamp_min(1e-30)
+  return out
+
+
+def _lin_moves(torch, lin, x64, nudges):
+  """How far each (goal, t) block moves under relative changes of the
+  states: the largest of _lin_blocks over (fx, fu, cx, cu) and over
+  `nudges`, lin(x) being the linearization at the float64 states x
+  (cast by lin to its own dtype)."""
+  base = lin(x64)
+  moved = torch.zeros(x64.shape[:2], dtype=torch.float64)
+  for nudge in nudges:
+    for err in _lin_blocks(torch, lin(x64 * (1 + nudge)), base).values():
+      moved = torch.maximum(moved, err)
+  return base, moved
+
+
+def _lin_faulted(torch, lc, fn):
+  """fn's linearization under the faults the hold must catch: TF32 matrix
+  products, and K2's tangent rounded to bfloat16 (the rules' entry
+  _rule_resolve patched)."""
+  out = {}
+  torch.backends.cuda.matmul.allow_tf32 = True
+  try:
+    out['tf32'] = fn()
+  finally:
+    torch.backends.cuda.matmul.allow_tf32 = False
+  real = lc._rule_resolve
+
+  def rounded(fac, g):
+    x = real(fac, g)
+    return x.bfloat16().to(x.dtype)
+
+  lc._rule_resolve = rounded
+  try:
+    out['k2_tangent_bf16'] = fn()
+  finally:
+    lc._rule_resolve = real
+  return out
+
+
+def _lin_hold(torch, pkg, planner, cpu64, cpu32, data, goals, xs, us, lin):
+  """The linearization hold (LIN_LIMITS) in goal 0's H blocks, and the
+  first backward pass on the CPU float64 port for the LIN_WITNESS goals.
+  `lin` is the card's linearization of every goal at (xs, us), the
+  solve's first.  Returns the phase's readings."""
+  tmap = pkg['types'].map_data
+  w = list(LIN_WITNESS)
+  d64 = tmap(data, lambda x: _to_cpu64(torch, x[w]))
+  g64, u64 = _to_cpu64(torch, goals[w]), _to_cpu64(torch, us[w])
+  x64 = _to_cpu64(torch, xs[w])
+  t0 = time.perf_counter()
+  ref = cpu64._linearize(d64, g64, x64, u64)
+  t_ref = time.perf_counter() - t0
+  reg = torch.full((len(w),), ILQR['reg_init'], dtype=torch.float64)
+  ks64, _ = cpu64._backward_pass(*ref, reg)
+  ref0 = [a[:1] for a in ref]
+  one = lambda d: tmap(d, lambda x: x[:1])
+  d32 = tmap(one(data), lambda x: x.cpu())
+  t0 = time.perf_counter()
+  _, moved64 = _lin_moves(
+      torch, lambda x: cpu64._linearize(one(d64), g64[:1], x, u64[:1]),
+      x64[:1], LIN_NUDGES_F64)
+  cpu_f32, moved32 = _lin_moves(
+      torch, lambda x: cpu32._linearize(d32, goals[:1].cpu(), x.float(),
+                                        us[:1].cpu()),
+      x64[:1], LIN_NUDGES_F32)
+  t_nudges = time.perf_counter() - t0
+  held = ((moved64 <= 1e-9) & (moved32 <= LIN_RESOLVED))[0]
+  check(bool(held.any()), 'ilqr linearization: no block resolved in both '
+        f'precisions ({moved64.tolist()}, {moved32.tolist()})')
+  runs = {'card': [a[:1] for a in lin], 'cpu_f32': cpu_f32,
+          **_lin_faulted(torch, pkg['linalg_cuda'], lambda: planner._linearize(
+              one(data), goals[:1], xs[:1], us[:1]))}
+  readings = {}
+  for run, got in runs.items():
+    errs = {k: v[0] for k, v in _lin_blocks(torch, got, ref0).items()}
+    if run in ('card', 'cpu_f32'):
+      for name, err in errs.items():
+        check(bool(torch.isfinite(err).all()),
+              f'ilqr linearization {name}, {run}: not finite')
+        check(float(err[held].max()) <= LIN_LIMITS[name],
+              f'ilqr linearization {name}, {run} vs CPU float64 in the held '
+              f'blocks: {err[held].tolist()}')
+    readings[run] = {
+        'held_max': {k: float(v[held].max()) for k, v in errs.items()},
+        'other_max': {k: float(v[~held].max()) if (~held).any() else None
+                      for k, v in errs.items()},
+        'over_limit': sorted(k for k, v in errs.items()
+                             if float(v[held].max()) > LIN_LIMITS[k]),
+        'per_block': {k: v.tolist() for k, v in errs.items()}}
+  return {'blocks': f'goal 0, t = 0..{xs.shape[1] - 1}',
+          'held': held.nonzero().flatten().tolist(),
+          'moved_f64': moved64[0].tolist(), 'moved_f32': moved32[0].tolist(),
+          'readings': readings, 'limits': LIN_LIMITS,
+          'cpu_s': {'f64_reference': t_ref, 'nudges_and_f32': t_nudges},
+          'witness_goals': w,
+          'nan_gain_steps_cpu_f64': torch.isnan(ks64).any(-1).sum(-1).tolist()}
+
+
+def _ilqr_busy(torch, planner, data, goals, us, xs, lin, reg, iterations):
+  """Device busy time of one solve, from one profiled window per stage
+  (a full solve launches millions of kernels, more than the profiler's
+  trace should hold): the rollout's control step at G rows, the line
+  search's at L x G rows (cost and step), one linearization pass and one
+  backward pass (at the plan us, its rollout xs and linearization lin);
+  the solve's busy time is their sum weighted by the counts one solve
+  runs (H steps each, per iteration)."""
+  g = us.shape[0]
+  x0 = planner._pack(data)
+  n_l = planner.config.line_search_steps
+  tmpl, goal_rows = planner._rows(
+      data, goals, torch.arange(g, device=us.device).repeat(n_l))
+  x_l, u_l = x0.repeat(n_l, 1), us[:, 0].repeat(n_l, 1)
+  windows = {
+      'rollout_step': _busy_window(torch, lambda: planner._f(data, x0,
+                                                             us[:, 0])),
+      'line_search_step': _busy_window(torch, lambda: (
+          planner._cost(tmpl, goal_rows, x_l, u_l),
+          planner._f(tmpl, x_l, u_l))),
+      'linearization': _busy_window(torch, lambda: planner._linearize(
+          data, goals, xs, us)),
+      'backward_pass': _busy_window(torch, lambda: planner._backward_pass(
+          *lin, reg))}
+  h = us.shape[1]
+  busy_ms = iterations * (
+      h * (windows['rollout_step']['device_busy_ms']
+           + windows['line_search_step']['device_busy_ms'])
+      + windows['linearization']['device_busy_ms']
+      + windows['backward_pass']['device_busy_ms'])
+  return busy_ms, windows
+
+
+def phase_ilqr(torch, pkg, smi):
+  """ILQR.solve at scripts/eval_ilqr.py's configuration for ILQR_GOALS
+  goals from GoalEnvironment.reset, the keep-in-hand shaping as its cost.
+  Warm-up: one solve at H = 2.  Then one full solve, timed: wall,
+  solves/s, peak memory, and exact K1/K2 launches (primal and tangent);
+  finite actions within the bounds, each iteration's cost no higher than
+  its alpha = 0 candidate's; each tangent launch against its plain rule
+  on the path's own inputs.  From the solve's first nominal: the steps of
+  the first backward pass whose gains are NaN, on the card and on the CPU
+  float64 port (_lin_hold), the linearization hold, and an estimate of
+  the device busy time and idle share from stage windows (_ilqr_busy)."""
+  ilqr, manip, lc = pkg['ilqr'], pkg['manipulation'], pkg['linalg_cuda']
+  env = manip.load('reorient', 'state_dense')
+  task = env.task
+  gen = torch.Generator().manual_seed(SEED + 6)
+  state, _ = env.reset(gen, (ILQR_GOALS,))
+  data, goals = state.data, state.task.goal
+  cost_fn = _keep_in_hand_cost(torch, task._prop_qadr)
+  planner = ilqr.ILQR(task, ilqr.ILQRConfig(**ILQR), extra_cost_fn=cost_fn)
+  check(planner.model.device.type == 'cuda' and
+        (planner.nx, planner.nu) == (61, 20), 'planner model')
+  t0 = time.perf_counter()
+  small = ilqr.ILQR(task, ilqr.ILQRConfig(**dict(ILQR, horizon=2)),
+                    extra_cost_fn=cost_fn)
+  small.solve(data, goals, small.init_state(streams=ILQR_GOALS))
+  torch.cuda.synchronize()
+  warm_s = time.perf_counter() - t0
+
+  st0 = planner.init_state(streams=ILQR_GOALS)
+  torch.cuda.reset_peak_memory_stats()
+  base_mem = torch.cuda.memory_allocated()
+  reset_counts(pkg)
+  t0 = time.perf_counter()
+  ((action, st), iters), seen = _capture_first(
+      lc, ['_rule_resolve'], lambda: _solve_recording(planner, data, goals,
+                                                       st0))
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  launches = read_counts(pkg)
+  peak = torch.cuda.max_memory_allocated()
+  want = _ilqr_launches(ILQR, planner.n_plan_substeps)
+  check({k: launches[k] for k in want} == want,
+        f'ilqr launches {launches}, want {want}')
+  lo, hi = planner._lo, planner._hi
+  check(bool(torch.isfinite(action).all()), 'ilqr: non-finite actions')
+  check(bool(((action >= lo) & (action <= hi)).all()),
+        'ilqr: actions off range')
+  per_iter = _check_no_regress(torch, 'ilqr', iters)
+  # The nominal's cost at G rows, beside its replay at L x G rows in the
+  # first iteration: the two batches round apart, and the contact
+  # dynamics carry that over 32 steps.
+  nominal = planner.trajectory_cost(data, goals, planner._pack(data), st0.us)
+  tangent = _tangent_holds(torch, lc, seen, 'ilqr')
+
+  # The first iteration's linearization (K1's first launch in it kept
+  # for the kernels line) and backward pass from the mid-range plan: the
+  # steps whose gains are NaN (a quu factorization that failed), and the
+  # linearization hold against the CPU float64 port.
+  xs0 = planner._rollout(data, planner._pack(data), st0.us)
+  lin0, k1_seen = _capture_first(
+      lc, ['cholesky_solve_factor'],
+      lambda: planner._linearize(data, goals, xs0, st0.us))
+  reg0 = torch.full((ILQR_GOALS,), ILQR['reg_init'], dtype=planner.dtype,
+                    device=data.qpos.device)
+  ks0, _ = planner._backward_pass(*lin0, reg0)
+  nan_gain_steps = torch.isnan(ks0).any(-1).sum(-1).tolist()
+  cpu = ilqr.ILQR(task, ilqr.ILQRConfig(**ILQR), extra_cost_fn=cost_fn,
+                  device='cpu', dtype=torch.float64)
+  cpu32 = ilqr.ILQR(task, ilqr.ILQRConfig(**ILQR), extra_cost_fn=cost_fn,
+                    device='cpu', dtype=torch.float32)
+  hold = _lin_hold(torch, pkg, planner, cpu, cpu32, data, goals, xs0, st0.us,
+                   lin0)
+  busy_ms, windows = _ilqr_busy(torch, planner, data, goals, st0.us, xs0,
+                                lin0, reg0, ILQR['iterations'])
+  emit({'phase': 'ilqr', 'start': 'GoalEnvironment.reset',
+        'goals': ILQR_GOALS, 'config': ILQR, 'reduced': [],
+        'nx': planner.nx, 'nu': planner.nu,
+        'linearization_rows': ILQR_GOALS * ILQR['horizon'] * 81,
+        'wall_s': wall, 'solves_per_s': ILQR_GOALS / wall,
+        'warmup_s_h2': warm_s, 'launches': launches,
+        'launches_want': want, 'peak_memory_gb': peak / 1e9,
+        'memory_before_gb': base_mem / 1e9,
+        'device_busy_ms_estimate': busy_ms,
+        'device_idle_share_estimate': max(0.0, 1 - busy_ms / (wall * 1e3)),
+        'busy_windows': windows, 'cost': st.cost.tolist(),
+        'iterations_cost': per_iter, 'nominal_cost_g_rows': nominal.tolist(),
+        'linearization_vs_cpu_f64': hold,
+        'improved': sum(int((c['kept'][g] < c['alpha0'][g]))
+                        for c in per_iter for g in range(ILQR_GOALS)),
+        'nan_gain_steps_first_iteration': nan_gain_steps,
+        'tangent_launches_vs_plain': tangent, 'card': smi})
+  return dict(launches=launches, seen=seen, k1=next(iter(k1_seen.values())),
+              planner=planner, data=data, goals=goals, us=st0.us,
+              err=max(v for k, v in tangent.items() if k.endswith(
+                  ('_rule_resolve', '_rule_resolve_vs_f64'))))
+
+
+def phase_ilqr_k3(torch, pkg):
+  """ILQR.solve at solver_refactor_every = 1 (the reference's round-4
+  setting): the exact Newton solves with K3, its tangents through K3's
+  rule.  H = 4, 1 iteration, 2 goals: K3's launches exactly, and its
+  tangent launch against the plain rule on the path's own inputs."""
+  ilqr, manip, lc = pkg['ilqr'], pkg['manipulation'], pkg['linalg_cuda']
+  env = manip.load('reorient', 'state_dense')
+  gen = torch.Generator().manual_seed(SEED + 7)
+  state, _ = env.reset(gen, (ILQR_K3_GOALS,))
+  cfg = dict(ILQR, **ILQR_K3)
+  planner = ilqr.ILQR(env.task, ilqr.ILQRConfig(**cfg),
+                      extra_cost_fn=_keep_in_hand_cost(
+                          torch, env.task._prop_qadr))
+  st0 = planner.init_state(streams=ILQR_K3_GOALS)
+  reset_counts(pkg)
+  t0 = time.perf_counter()
+  (action, st), seen = _capture_first(
+      lc, ['_rule_solve'], lambda: planner.solve(state.data, state.task.goal,
+                                                 st0))
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  launches = read_counts(pkg)
+  want = _ilqr_launches(cfg, planner.n_plan_substeps)
+  check({k: launches[k] for k in want} == want,
+        f'ilqr_k3 launches {launches}, want {want}')
+  check(bool(torch.isfinite(action).all() and torch.isfinite(st.cost).all()),
+        'ilqr_k3: non-finite')
+  check(set(seen) == {('_rule_solve', 'jvp')},
+        f'ilqr_k3 tangent launches {set(seen)}')
+  tangent = _tangent_holds(torch, lc, seen, 'ilqr_k3')
+  emit({'phase': 'ilqr_k3', 'goals': ILQR_K3_GOALS, 'config': cfg,
+        'reduced': ['horizon 32 -> 4', 'iterations 4 -> 1', 'goals 8 -> 2'],
+        'wall_s': wall, 'launches': launches, 'launches_want': want,
+        'tangent_launches_vs_plain': tangent})
+  return dict(launches=launches, seen=seen,
+              err=max(v for k, v in tangent.items() if k.endswith(
+                  ('_rule_solve', '_rule_solve_vs_f64'))))
+
+
+def phase_sqp(torch, pkg, ilqr_out):
+  """SQP.solve at the iLQR phase's configuration with SQP_ITERATIONS
+  outer iteration(s), from the same states and goals: wall, exact
+  launches, a finite plan within the bounds and a cost no higher than
+  its alpha = 0 candidate's."""
+  sqp = pkg['sqp']
+  base = ilqr_out['planner']
+  data, goals = ilqr_out['data'], ilqr_out['goals']
+  cfg = dict(ILQR, iterations=SQP_ITERATIONS)
+  planner = sqp.SQP(base.task, sqp.SQPConfig(**cfg),
+                    extra_cost_fn=base.extra_cost_fn)
+  st0 = planner.init_state(streams=ILQR_GOALS)
+  reset_counts(pkg)
+  t0 = time.perf_counter()
+  (action, st), iters = _solve_recording(planner, data, goals, st0)
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  launches = read_counts(pkg)
+  want = _ilqr_launches(cfg, planner.n_plan_substeps)
+  check({k: launches[k] for k in want} == want,
+        f'sqp launches {launches}, want {want}')
+  per_iter = _check_no_regress(torch, 'sqp', iters)
+  # A solve whose every candidate diverged keeps its plan and reports an
+  # infinite cost, as the reference does.
+  check(bool(torch.isfinite(st.us).all() and not torch.isnan(st.cost).any()),
+        'sqp: non-finite plan')
+  check(bool(((st.us >= planner._lo) & (st.us <= planner._hi)).all()),
+        'sqp: plan off range')
+  emit({'phase': 'sqp', 'goals': ILQR_GOALS, 'config': cfg,
+        'qp_iterations': planner.config.qp_iterations,
+        'reduced': [f'iterations 4 -> {SQP_ITERATIONS}'], 'wall_s': wall,
+        'solves_per_s': ILQR_GOALS / wall, 'launches': launches,
+        'launches_want': want, 'cost': st.cost.tolist(),
+        'iterations_cost': per_iter,
+        'improved': sum(int((c['kept'][g] < c['alpha0'][g]))
+                        for c in per_iter for g in range(ILQR_GOALS))})
+
+
+def phase_hybrid(torch, pkg):
+  """scripts/eval_ilqr.py's hybrid control step (one_solve, :115-129) for
+  HYBRID_GOALS goals from GoalEnvironment.reset, HYBRID_STEPS control
+  steps: predictive sampling's solve_batch at its PS configuration, the
+  iLQR warm start from its plan, the two trajectory costs that pick the
+  seed, ILQR.solve with its iterations cut to 1, then env.step; finished
+  episodes frozen as phase_closed_loop freezes them.  Wall per control
+  step; no success rate is checked."""
+  ilqr, ps, manip = pkg['ilqr'], pkg['ps'], pkg['manipulation']
+  structs = pkg['structs']
+  env = manip.load('reorient', 'state_dense')
+  task = env.task
+  dev = env.model.device
+  qadr = task._prop_qadr
+  ps_planner = ps.PredictiveSampling(
+      task, ps.PredictiveSamplingConfig(**HYBRID_PS),
+      extra_reward_fn=_keep_in_hand(torch, qadr))
+  cfg = dict(ILQR, iterations=1)
+  planner = ilqr.ILQR(task, ilqr.ILQRConfig(**cfg),
+                      extra_cost_fn=_keep_in_hand_cost(torch, qadr))
+  gen = torch.Generator().manual_seed(SEED + 8)
+  pgen = torch.Generator(device=dev).manual_seed(SEED + 8)
+  state, _ = env.reset(gen, (HYBRID_GOALS,))
+  ist = planner.init_state(streams=HYBRID_GOALS)
+  pst = ps_planner.init_state(streams=HYBRID_GOALS)
+  done = torch.zeros(HYBRID_GOALS, dtype=torch.bool, device=dev)
+  walls, parts, picked = [], [], []
+  for i in range(HYBRID_STEPS):
+    t0 = time.perf_counter()
+    data, goals = state.data, state.task.goal
+    _, pst2 = ps_planner.solve_batch(data, goals, pst, pgen)
+    t_ps = time.perf_counter()
+    warm = planner.warm_start(pst2.nominal)
+    x0 = planner._pack(data)
+    c_warm = planner.trajectory_cost(data, goals, x0, warm.us)
+    c_nom = planner.trajectory_cost(data, goals, x0, ist.us)
+    take = c_warm < c_nom
+    seed = torch.where(take[:, None, None], warm.us, ist.us)
+    t_seed = time.perf_counter()
+    action, ist2 = planner.solve(data, goals, ilqr.ILQRState(
+        us=seed, cost=ist.cost))
+    t_solve = time.perf_counter()
+    state2, ts = env.step(state, action, gen)
+    ended = ts.step_type == 2
+    before = state
+    state = structs.where_rows(done, state, state2)
+    ist = structs.where_rows(done, ist, ist2)
+    pst = structs.where_rows(done, pst, pst2)
+    if bool(done.any()):
+      check(bool((state.data.qpos[done] == before.data.qpos[done]).all()),
+            f'hybrid: a frozen episode moved at step {i}')
+    done = done | ended
+    check(bool(torch.isfinite(action[~done]).all()
+               and torch.isfinite(state.data.qpos).all()),
+          f'hybrid: non-finite at control step {i}')
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    walls.append(t_end - t0)
+    parts.append({'solve_batch_s': t_ps - t0,
+                  'warm_start_and_costs_s': t_seed - t_ps,
+                  'ilqr_solve_s': t_solve - t_seed,
+                  'env_step_s': t_end - t_solve})
+    picked.append(int(take.sum()))
+  emit({'phase': 'hybrid', 'goals': HYBRID_GOALS, 'steps': HYBRID_STEPS,
+        'ps_config': HYBRID_PS, 'ilqr_config': cfg,
+        'reduced': ['iLQR iterations 4 -> 1', 'goals 16 -> 4',
+                    f'control steps 300 -> {HYBRID_STEPS}'],
+        'wall_s_per_control_step': walls, 'parts': parts,
+        'sampled_plan_picked': picked, 'ended': int(done.sum()),
+        'median_goal_distance': float(
+            state.task.goal_distance[:, 0].median())})
+
+
+def _rotating(torch, args, fn):
+  """fn over copies of its operands that together hold at least eight
+  times the card's L2 cache (L2_BYTES), one copy per call in turn, so
+  that each call reads its operands from HBM and its time can be set
+  beside the bound.  (With two copies of K2's (20,736, 30, 30) operands,
+  of which the kernel reads one triangle, 87 MB in all, K2 read 7.6-31
+  us against its 13.0 us bound in three runs: L2 still served part.)"""
+  nbytes = sum(a.numel() * a.element_size() for a in args)
+  copies = [tuple(a.clone() for a in args)
+            for _ in range(max(2, -(-8 * L2_BYTES // nbytes)))]
+  turn = itertools.count()
+  return lambda: fn(*copies[next(turn) % len(copies)])
+
+
+def _ilqr_rows(torch, lc, ilqr_out, k3_out):
+  """The kernels line's rows of the `ilqr` path, on launches captured
+  from it: K1 on its first launch in the linearization, K2 on its first
+  tangent launch, K3 on the refactor-1 run's first tangent launch, each
+  held against its plain version and float64 and timed over operand
+  copies larger than L2 (_rotating).  Launches from the phases' counted
+  solves."""
+  h1, g1 = ilqr_out['k1']
+  k1_err = _vs_plain(torch, lc, 'cholesky_solve_factor', h1, g1,
+                     'ilqr linearization, first K1 launch')['']
+  fac, dg = ilqr_out['seen'][('_rule_resolve', 'jvp')]
+  h3, g3 = k3_out['seen'][('_rule_solve', 'jvp')]
+  specs = (
+      ('cholesky_solve_factor', (h1, g1), 'solve_factor', ilqr_out, k1_err,
+       lc.cholesky_solve_factor, lc.solve_factor_plain),
+      ('cholesky_resolve_const', (fac, dg), 'resolve', ilqr_out,
+       ilqr_out['err'], lc.cholesky_resolve_const, lc.resolve_plain),
+      ('cholesky_solve', (h3, g3), 'solve', k3_out, k3_out['err'],
+       lc.cholesky_solve, lc.solve_plain))
+  rows = []
+  for name, args, kind, out, err, wrapper, plain in specs:
+    fn = _rotating(torch, args, wrapper)
+    ms, names = _device_profile(torch, fn, 100)
+    if kind == 'resolve':
+      # The library's resolve takes an L with the diagonal in place.
+      f64 = args[0].double()
+      ll = (torch.tril(f64, -1) + torch.diag_embed(
+          1 / torch.diagonal(f64, dim1=-2, dim2=-1))).float()
+      lib = _rotating(torch, (args[1], ll),
+                      lambda g, l: torch.cholesky_solve(g[..., None], l))
+    else:
+      lib = _rotating(torch, args, lambda h, g: torch.cholesky_solve(
+          g[..., None], torch.linalg.cholesky_ex(h)[0]))
+    a = args[0]
+    rows.append((name, {
+        'max_abs_err': err, 'ms': ms, 'kernel_ms': ms,
+        'design': _ran_design(names), 'operands': 'rotating, > 2 x L2',
+        **_timing_row(torch, fn, _rotating(torch, args, plain), lib,
+                      a.shape[0], a.shape[-1], kind),
+        'path': 'ilqr', 'launches': out['launches'][name]}))
+  return rows
+
+
 def _state_errs(torch, card, ref, k):
   """Max-abs errors of the first k environments of a card Data against a
   float64 CPU Data: qpos, qvel, and the frames relative to their
@@ -1502,8 +2109,11 @@ def _ran_design(names):
 
 def _bound(b, n, elem, kind):
   """Least time (ms) for the work: bytes (each input read once, each
-  output written once) over HBM rate vs FMAs over the FP32/FP64 rate."""
-  mat, vec = b * n * n * elem, b * n * elem
+  output written once) over HBM rate vs FMAs over the FP32/FP64 rate.
+  A matrix moves one triangle with its diagonal: an SPD matrix is
+  determined by it, and a packed factor holds nothing else (PR 8's
+  yardstick counted n^2, which K2 beats: PERF.md §6)."""
+  mat, vec = b * n * (n + 1) // 2 * elem, b * n * elem
   if kind == 'solve_factor':
     nbytes = mat + vec + vec + mat
     fmas = b * (n ** 3 / 3 + n * n)
@@ -2273,13 +2883,13 @@ def main():
   from dexterity_tpu_torch.physics import (constraint, cuda_build, linalg_cuda,
                                            smooth, step, tree_cuda)
   from dexterity_tpu_torch.physics.collision import primitives
-  from dexterity_tpu_torch.planners import common
+  from dexterity_tpu_torch.planners import common, ilqr, sqp
   from dexterity_tpu_torch.planners import predictive_sampling as ps
   from dexterity_tpu_torch.utils import structs
   pkg = dict(types=types, step=step, linalg_cuda=linalg_cuda,
              tree_cuda=tree_cuda, cuda_build=cuda_build,
              primitives=primitives, common=common, manipulation=manipulation,
-             smooth=smooth, constraint=constraint, ps=ps,
+             smooth=smooth, constraint=constraint, ps=ps, ilqr=ilqr, sqp=sqp,
              prop_orientation=prop_orientation, structs=structs,
              hands=hands)
 
@@ -2316,6 +2926,10 @@ def main():
               for domain, variant in TASK_PHASES}
   phase_reach_oracle(torch, pkg)
   suite_k3 = phase_suite(torch, pkg)
+  ilqr_out = phase_ilqr(torch, pkg, smi)
+  k3_out = phase_ilqr_k3(torch, pkg)
+  phase_sqp(torch, pkg, ilqr_out)
+  phase_hybrid(torch, pkg)
   path_launches = {'main_path': planner_out['launches'],
                    'environment': env_launches,
                    'entry:cholesky_factor': factor_launches,
@@ -2334,6 +2948,7 @@ def main():
                                           launches, err)))
   emit({'phase': 'k3_task_sizes',
         'rows': {name: row for name, _, row in k3_rows}})
+  ilqr_rows = _ilqr_rows(torch, lc, ilqr_out, k3_out)
   if args.profile:
     phase_profile(torch, pkg, main_out)
     phase_profile_solve(torch, planner_out)
@@ -2348,6 +2963,12 @@ def main():
     check(row['launches'] > 0, f'{name} was not launched on {row["path"]}')
     line.append({'name': name, 'kernel': 'cholesky_solve', 'route': 'cuda',
                  'source': source, 'replaces': f'{_LP}:74', **row,
+                 'card': smi})
+  replaces = {name: rep for name, rep, _, _ in KERNELS}
+  for name, row in ilqr_rows:
+    check(row['launches'] > 0, f'{name} was not launched on ilqr')
+    line.append({'name': f'{name}_ilqr', 'kernel': name, 'route': 'cuda',
+                 'source': _REGS, 'replaces': replaces[name], **row,
                  'card': smi})
   print(smi, flush=True)
   emit({'kernels': line})

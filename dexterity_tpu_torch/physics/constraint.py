@@ -894,7 +894,11 @@ def solve(model: Model, data: Data, qfrc_smooth: torch.Tensor,
             - sum(_blk_rmatvec(b, f) for b, (f, _) in zip(blocks, fws)))
     if refac_every > 1:
       if fac is None:
-        sol, fac = linalg_cuda.cholesky_solve_factor(hessian(fws) + eye, grad)
+        # Detached, as the JAX package stops its gradient: the packed
+        # factor is a preconditioner whose tangents vanish at the
+        # solver's fixed point (K1's rule drops dH as well).
+        sol, fac = linalg_cuda.cholesky_solve_factor(
+            (hessian(fws) + eye).detach(), grad)
         delta = -sol
       else:
         delta = -linalg_cuda.cholesky_resolve_const(fac, grad)

@@ -44,7 +44,30 @@ alone; no switch overrides it on the public wrappers.
 run can time the shared design beside the register one.
 
 The kernels are built at first use by `cuda_build` (nvcc, sm_90a, ctypes).
-No gradients are defined here.
+
+Derivatives follow the JAX package's rules, forward (`jvp`) and reverse
+(`backward`), each a `torch.autograd.Function` that serves the plain
+version on the CPU and the kernel on the card alike:
+
+  cholesky_solve_factor   linalg_pallas.py:242-259 (custom_jvp): the
+                          packed factor is a constant preconditioner;
+                          dx = K2(fac, dg), dH dropped, no derivative on
+                          the factor (callers detach H, as the JAX package
+                          stops its gradient)
+  cholesky_resolve_const  :458-481 (custom_jvp): dx = K2(fac, dg), dfac
+                          dropped
+  cholesky_solve          :525-540 (custom_linear_solve, symmetric):
+                          dx = K3(H, dg - dH x); cotangents gbar = K3(H,
+                          xbar), Hbar = -gbar x^T
+  cholesky_resolve,       no rule in the JAX package: a tangent or a
+  cholesky_factor         gradient reaching them raises
+
+So the tangents of K1 and K2 run through K2, K3's through K3 (the rules'
+own entries `_rule_resolve` and `_rule_solve`), and the launch counts
+include them.  Operands with no derivative skip the Function
+(`Function.apply` costs ~50 us of host time per call, and the planner's
+path is host-bound).  `_launch` refuses an operand that carries a
+forward-mode tangent or requires grad: no launch drops a derivative.
 """
 
 from __future__ import annotations
@@ -52,6 +75,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.autograd import forward_ad
 
 from dexterity_tpu_torch.physics import cuda_build
 
@@ -118,11 +142,34 @@ def _warp_smem_bytes(n: int, elem_bytes: int, design: str) -> int:
   return (n * (n | 1) + n) * elem_bytes
 
 
+def _carries_derivative(t) -> bool:
+  """True if t holds a forward-mode tangent, or requires grad while
+  autograd records."""
+  if t is None:
+    return False
+  if t.requires_grad and torch.is_grad_enabled():
+    return True
+  return forward_ad.unpack_dual(t).tangent is not None
+
+
+def _differentiating(*ts) -> bool:
+  return any(_carries_derivative(t) for t in ts)
+
+
+def _refuse_derivative(name: str, *ts) -> None:
+  if _differentiating(*ts):
+    raise RuntimeError(f'{name}: an operand carries a derivative, which '
+                       'this function has no rule for')
+
+
 def _launch(mode: int, name: str, a: torch.Tensor, g=None,
             want_factor: bool = False, design: str | None = None):
   """Checks the operands and launches one kernel on the current stream.
   Returns x, (x, factor) or, with no rhs, the factor alone.  `design`
-  None takes `_design`; the public wrappers never pass it."""
+  None takes `_design`; the public wrappers never pass it.  An operand
+  with a derivative raises: the derivative rules above call this on
+  plain tensors."""
+  _refuse_derivative(name, a, g)
   if a.dtype not in (torch.float32, torch.float64):
     raise TypeError(f'{name}: dtype {a.dtype} is not float32/float64')
   if a.dim() < 2 or a.shape[-2] != a.shape[-1]:
@@ -221,6 +268,120 @@ def solve_plain(h, g):
 
 
 # ---------------------------------------------------------------------------
+# Derivative rules (linalg_pallas.py's custom_jvp / custom_linear_solve)
+# ---------------------------------------------------------------------------
+
+
+def _resolve(fac, g):
+  """K2 on the card, its plain version on the CPU."""
+  if fac.device.type == 'cuda':
+    return _launch(_MODE_RESOLVE, 'cholesky_resolve_const', fac, g)
+  return resolve_plain(fac, g)
+
+
+def _solve(h, g):
+  """K3 on the card, its plain version on the CPU."""
+  if h.device.type == 'cuda':
+    return _launch(_MODE_SOLVE, 'cholesky_solve', h, g)
+  return solve_plain(h, g)
+
+
+def _rule_resolve(fac, g):
+  """K2 for the derivative rules' tangents and cotangents: one entry,
+  so that their launches can be told from the primal ones."""
+  return _resolve(fac, g)
+
+
+def _rule_solve(h, g):
+  """K3 for the derivative rules' tangents and cotangents."""
+  return _solve(h, g)
+
+
+class _SolveFactor(torch.autograd.Function):
+  """K1: x and the packed factor.  dx = K2(fac, dg); dH and the factor
+  carry nothing (linalg_pallas.py:253-259)."""
+
+  @staticmethod
+  def forward(h, g):
+    if h.device.type == 'cuda':
+      return _launch(_MODE_SOLVE_FACTOR, 'cholesky_solve_factor', h, g,
+                     want_factor=True)
+    return solve_factor_plain(h, g)
+
+  @staticmethod
+  def setup_context(ctx, inputs, output):
+    fac = output[1]
+    ctx.mark_non_differentiable(fac)
+    ctx.save_for_forward(fac)
+    ctx.save_for_backward(fac)
+
+  @staticmethod
+  def jvp(ctx, dh, dg):
+    del dh
+    fac, = ctx.saved_tensors
+    return _rule_resolve(fac, dg), None
+
+  @staticmethod
+  def backward(ctx, gx, gfac):
+    del gfac
+    fac, = ctx.saved_tensors
+    return None, _rule_resolve(fac, gx)
+
+
+class _ResolveConst(torch.autograd.Function):
+  """K2 under a constant preconditioner: dx = K2(fac, dg), dfac dropped
+  (linalg_pallas.py:476-481)."""
+
+  @staticmethod
+  def forward(fac, g):
+    return _resolve(fac, g)
+
+  @staticmethod
+  def setup_context(ctx, inputs, output):
+    fac = inputs[0].detach()
+    ctx.save_for_forward(fac)
+    ctx.save_for_backward(fac)
+
+  @staticmethod
+  def jvp(ctx, dfac, dg):
+    del dfac
+    fac, = ctx.saved_tensors
+    return _rule_resolve(fac, dg)
+
+  @staticmethod
+  def backward(ctx, gx):
+    fac, = ctx.saved_tensors
+    return None, _rule_resolve(fac, gx)
+
+
+class _Solve(torch.autograd.Function):
+  """K3 with implicit differentiation (lax.custom_linear_solve,
+  symmetric; linalg_pallas.py:525-540): dx = K3(H, dg - dH x); gbar =
+  K3(H, xbar), Hbar = -gbar x^T."""
+
+  @staticmethod
+  def forward(h, g):
+    return _solve(h, g)
+
+  @staticmethod
+  def setup_context(ctx, inputs, output):
+    h = inputs[0].detach()
+    ctx.save_for_forward(h, output)
+    ctx.save_for_backward(h, output)
+
+  @staticmethod
+  def jvp(ctx, dh, dg):
+    h, x = ctx.saved_tensors
+    return _rule_solve(h, dg - torch.einsum('...ij,...j->...i', dh, x))
+
+  @staticmethod
+  def backward(ctx, gx):
+    h, x = ctx.saved_tensors
+    gg = _rule_solve(h, gx)
+    return -gg[..., :, None] * x[..., None, :], gg
+
+
+# ---------------------------------------------------------------------------
 # Public wrappers (names mirror linalg_pallas)
 # ---------------------------------------------------------------------------
 
@@ -229,24 +390,24 @@ def cholesky_solve_factor(h: torch.Tensor, g: torch.Tensor):
   """Solves H x = g and returns (x, packed factor) for
   cholesky_resolve_const (K1)."""
   _check_device('cholesky_solve_factor', h)
-  if h.device.type == 'cuda':
-    return _launch(_MODE_SOLVE_FACTOR, 'cholesky_solve_factor', h, g,
-                   want_factor=True)
-  return solve_factor_plain(h, g)
+  if _differentiating(h, g):
+    return _SolveFactor.apply(h, g)
+  return _SolveFactor.forward(h, g)
 
 
 def cholesky_resolve_const(fac: torch.Tensor, g: torch.Tensor):
   """Solves H x = g given the packed factor of H (K2)."""
   _check_device('cholesky_resolve_const', fac)
-  if fac.device.type == 'cuda':
-    return _launch(_MODE_RESOLVE, 'cholesky_resolve_const', fac, g)
-  return resolve_plain(fac, g)
+  if _differentiating(fac, g):
+    return _ResolveConst.apply(fac, g)
+  return _ResolveConst.forward(fac, g)
 
 
 def cholesky_factor(h: torch.Tensor) -> torch.Tensor:
   """(..., n, n) SPD -> packed factor (..., n, n) for cholesky_resolve
   (K4)."""
   _check_device('cholesky_factor', h)
+  _refuse_derivative('cholesky_factor', h)
   if h.device.type == 'cuda':
     return _launch(_MODE_FACTOR, 'cholesky_factor', h, want_factor=True)
   return factor_plain(h)
@@ -256,14 +417,13 @@ def cholesky_resolve(fac: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
   """Solves H x = g given fac = cholesky_factor(H): (..., n, n), (..., n)
   -> (..., n) (K2)."""
   _check_device('cholesky_resolve', fac)
-  if fac.device.type == 'cuda':
-    return _launch(_MODE_RESOLVE, 'cholesky_resolve_const', fac, g)
-  return resolve_plain(fac, g)
+  _refuse_derivative('cholesky_resolve', fac, g)
+  return _resolve(fac, g)
 
 
 def cholesky_solve(h: torch.Tensor, g: torch.Tensor):
   """Solves H x = g for SPD H, without emitting the factor (K3)."""
   _check_device('cholesky_solve', h)
-  if h.device.type == 'cuda':
-    return _launch(_MODE_SOLVE, 'cholesky_solve', h, g)
-  return solve_plain(h, g)
+  if _differentiating(h, g):
+    return _Solve.apply(h, g)
+  return _Solve.forward(h, g)

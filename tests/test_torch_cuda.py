@@ -546,3 +546,103 @@ def test_k3_on_the_new_tasks_newton_hessians(domain, variant, n, design):
                                  * x.double().abs().amax(-1)
                                  + g64.abs().amax(-1))).max().item()
     assert bwd <= 1e-4
+
+
+def _jvp_and_grad(fn, first, g, dfirst, dg, xbar):
+  """fn's forward-mode tangent (x's) and its gradients under xbar."""
+  from torch.autograd import forward_ad
+  with forward_ad.dual_level():
+    out = fn(forward_ad.make_dual(first, dfirst),
+             forward_ad.make_dual(g, dg))
+    out = out[0] if isinstance(out, tuple) else out
+    tangent = forward_ad.unpack_dual(out).tangent
+  a, b = first.clone().requires_grad_(), g.clone().requires_grad_()
+  out = fn(a, b)
+  out = out[0] if isinstance(out, tuple) else out
+  grads = torch.autograd.grad(out, (a, b), xbar, allow_unused=True)
+  return tangent, grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b', [1024, 8])
+@pytest.mark.parametrize('name', ['cholesky_solve_factor',
+                                  'cholesky_resolve_const', 'cholesky_solve'])
+def test_derivative_rules_on_card_match_cpu(name, b):
+  """K1/K2/K3's tangents and gradients on the card (float32, the
+  kernels) against the same Functions on the CPU in float64 (the plain
+  versions), at (b, 30, 30); the tangents launch K2 (K1's and K2's) and
+  K3 (K3's), counted under their own names."""
+  _cuda()
+  n = 30
+  h, g = _spd(11, b, n)
+  rng = np.random.RandomState(12)
+  dh, dg, xbar = rng.randn(b, n, n), rng.randn(b, n), rng.randn(b, n)
+  if name == 'cholesky_resolve_const':
+    h = LC.factor_plain(torch.as_tensor(h)).numpy()
+  fn = getattr(LC, name)
+  dev = [torch.as_tensor(a, dtype=torch.float32, device='cuda')
+         for a in (h, g, dh, dg, xbar)]
+  cpu = [torch.as_tensor(a, dtype=torch.float64) for a in (h, g, dh, dg, xbar)]
+  LC.reset_launches()
+  t_card, g_card = _jvp_and_grad(fn, *dev)
+  torch.cuda.synchronize()
+  counts = dict(LC.launches)
+  t_cpu, g_cpu = _jvp_and_grad(fn, *cpu)
+  tol = dict(rtol=1e-3, atol=1e-3 * float(t_cpu.abs().max()))
+  torch.testing.assert_close(t_card.double().cpu(), t_cpu, **tol)
+  for a, c in zip(g_card, g_cpu):
+    assert (a is None) == (c is None)
+    if c is not None:
+      torch.testing.assert_close(a.double().cpu(), c, rtol=1e-3,
+                                 atol=1e-3 * float(c.abs().max()))
+  # Forward mode: the primal launch and the tangent's; reverse mode: the
+  # primal launch and the cotangent's.
+  want = {'cholesky_solve_factor': {'cholesky_solve_factor': 2,
+                                    'cholesky_resolve_const': 2},
+          'cholesky_resolve_const': {'cholesky_resolve_const': 4},
+          'cholesky_solve': {'cholesky_solve': 4}}[name]
+  assert {k: v for k, v in counts.items() if v} == want
+
+
+@pytest.mark.cuda
+def test_dual_tensor_reaching_launch_raises_on_card():
+  """No launch drops a derivative: a dual or grad-requiring operand at
+  `_launch` raises."""
+  from torch.autograd import forward_ad
+  _cuda()
+  h, g = _spd(13, 4, 30)
+  hc = torch.as_tensor(h, dtype=torch.float32, device='cuda')
+  gc = torch.as_tensor(g, dtype=torch.float32, device='cuda')
+  with forward_ad.dual_level():
+    with pytest.raises(RuntimeError, match='derivative'):
+      LC._launch(LC._MODE_SOLVE, 'cholesky_solve', hc,
+                 forward_ad.make_dual(gc, torch.ones_like(gc)))
+  with pytest.raises(RuntimeError, match='derivative'):
+    LC._launch(LC._MODE_SOLVE, 'cholesky_solve', hc.requires_grad_(), gc)
+  with pytest.raises(RuntimeError, match='derivative'):
+    LC.cholesky_factor(hc)
+
+
+@pytest.mark.cuda
+def test_ilqr_solve_runs_on_card_with_tangent_launches():
+  """One ILQR.solve at H = 2 (1 iteration, 2 line-search steps) on the
+  reorient planning model for 2 goals from reset: finite actions within
+  the bounds, and the K1/K2 launches the configuration gives: per
+  substep, the rollout and the line search launch 1 K1 + 3 K2 each, the
+  linearization 1 K1 + 3 K2 primal and 4 K2 tangent."""
+  from dexterity_tpu_torch.planners import ilqr
+  _cuda()
+  env = manipulation.load('reorient', 'state_dense')
+  state, _ = env.reset(torch.Generator().manual_seed(0), (2,))
+  planner = ilqr.ILQR(env.task, ilqr.ILQRConfig(
+      horizon=2, iterations=1, line_search_steps=2, plan_substeps=3))
+  LC.reset_launches()
+  act, st = planner.solve(state.data, state.task.goal,
+                          planner.init_state(streams=2))
+  torch.cuda.synchronize()
+  h, s = 2, planner.n_plan_substeps
+  assert LC.launches['cholesky_solve_factor'] == 2 * h * s + s
+  assert LC.launches['cholesky_resolve_const'] == 3 * 2 * h * s + 7 * s
+  assert LC.launches['cholesky_solve'] == 0
+  assert bool(torch.isfinite(act).all() and torch.isfinite(st.cost).all())
+  assert bool(((act >= planner._lo) & (act <= planner._hi)).all())

@@ -66,7 +66,8 @@ def test_importing_the_port_loads_no_jax():
           '             "models.arenas", "manipulation.tasks.reach",\n'
           '             "manipulation.tasks.juggle",\n'
           '             "manipulation.goals.fingertip_position",\n'
-          '             "physics.constraint"):\n'
+          '             "physics.constraint", "planners.ilqr",\n'
+          '             "planners.sqp"):\n'
           '  assert "dexterity_tpu_torch." + name in sys.modules, name\n'
           'bad = [m for m in sys.modules if m.split(".")[0] in '
           '("jax", "dexterity_tpu")]\n'
@@ -104,6 +105,24 @@ def test_entry_points_raise_without_a_card(monkeypatch):
   with pytest.raises(RuntimeError, match='no CUDA device'):
     types.resolve_device(None)
   assert types.resolve_device('cpu') == torch.device('cpu')
+
+
+@pytest.mark.parametrize('planner', ['ilqr', 'sqp'])
+def test_gradient_planners_need_a_card_or_the_cpu(monkeypatch, planner):
+  """Without a card, ILQR and SQP raise unless the caller asks for the
+  CPU; with device='cpu' the planning model and the plan live there."""
+  import importlib
+  from dexterity_tpu_torch import manipulation
+  mod = importlib.import_module(f'dexterity_tpu_torch.planners.{planner}')
+  cls, cfg = ((mod.ILQR, mod.ILQRConfig) if planner == 'ilqr'
+              else (mod.SQP, mod.SQPConfig))
+  monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+  task = manipulation.build_task('reach', 'state_dense')
+  with pytest.raises(RuntimeError, match='no CUDA device'):
+    cls(task, cfg(horizon=2))
+  p = cls(task, cfg(horizon=2), device='cpu')
+  assert p.model.device == torch.device('cpu')
+  assert p.init_state(streams=3).us.shape == (3, 2, p.nu)
 
 
 @pytest.mark.parametrize('domain,task', [('reach', 'state_dense'),
