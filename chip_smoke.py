@@ -133,6 +133,26 @@ non-zero otherwise, and on any failed check.  Phases, one JSON line each:
      pick the seed, one iLQR iteration, env.step) for 4 goals and 1
      control step (cut from 2 to keep the script inside its limit): wall
      per control step and its parts.
+  17. ik: IKSolver.solve_batch on the card (Adroit, float32): 64 feasible
+     target sets (the fingertips' FK at joint positions uniform in 0.8 of
+     the ranges, as examples/inverse_kinematics.py draws them) x 30
+     attempts, up to 100 steps, tolerance 1e-3; a warm-up and 3 timed
+     calls: target sets/s, wall per call, the loop's iterations, launches
+     per iteration, device busy and idle of one call, peak memory, the
+     K1-K6 launches (none: the path runs no TPU kernel's port).  Holds:
+     every solved set's FK in float64 within 1.5 tol of its targets and
+     its joints in range, at least 52 of 64 solved (tests/test_ik.py's 4
+     in 5), all tips 2 m overhead fails, the first iteration's q-dot of 8
+     sets' attempts within IK_QDOT_LIMIT of the CPU float64 port (and the
+     stacked Jacobian rounded to TF32, the fault, outside it); reported:
+     success agreement with the CPU float64 port from the same starts.
+  18. wrappers: reorient at B = 32 in a BatchedEnvironment whose hand
+     effector is wrapped in SmoothAction(PreviousAction(.), 0.3), 3 steps
+     with rows 1 and 5 reset before the last, against the same run on the
+     CPU in float64 (first 8 episodes, TASK_LIMITS['reorient']): the
+     wrapper state equal (flags exactly, commands within float32
+     rounding), the reset rows' smoothing restarted; then a checkpoint
+     save / load of the card's state, bit-equal.
   --profile adds host and device time by stage and device time by kernel
   over one planning control step, and the device busy time and idle share
   over one solve_batch.
@@ -152,7 +172,8 @@ and the last line do not depend on the success rate.
 CPU float64 port, on seeds 0 to N - 1, for runs that are sound (the card;
 the port on the CPU in float32) and faulted (the card with TF32 matrix
 products; with K3's solution rounded to bfloat16): the readings that
-TASK_LIMITS is set from, one line per task.
+TASK_LIMITS is set from, one line per task; then phase 17's q-dot hold on
+N seeds, sound and faulted (IK_QDOT_LIMIT's readings).
 """
 
 from __future__ import annotations
@@ -165,6 +186,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -286,6 +308,28 @@ ORACLE_STEPS = 200
 B_SUITE = 4096
 SUITE_WARMUP = 2
 SUITE_STEPS = 100
+
+# The ik phase: examples/inverse_kinematics.py's feasible targets (the
+# fingertips' FK at joint positions uniform in 0.8 of the ranges), all
+# sets x attempts rows in one solve_batch; tests/test_ik.py's bars.
+IK_SETS = 64
+IK_ATTEMPTS = 30
+IK_MAX_STEPS = 100
+IK_TOL = 1e-3
+IK_TIMED = 3
+IK_SOLVED_MIN = 52           # 4 in 5 of IK_SETS, rounded up
+IK_HELD_SETS = 8             # sets whose first q-dot is held (x attempts)
+# The first iteration's q-dot against the CPU float64 port, relative to
+# its max-abs: PERF.md section 2's rule over the readings of
+# `--hold-readings 8` (sound: the card 2.19e-5-4.14e-5, the CPU float32
+# port 1.82e-5-4.82e-5; 3 x 4.82e-5 -> 2e-4).
+IK_QDOT_LIMIT = 2e-4
+
+# The wrappers phase: reorient at B_EPISODES with the hand effector in
+# SmoothAction(PreviousAction(.)), ENV_STEPS steps, WRAP_RESET_ROWS reset
+# before the last step.
+WRAP_ALPHA = 0.3
+WRAP_RESET_ROWS = (1, 5)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and FP32 non-tensor rate.
 PEAK_BYTES_PER_S = 3.35e12
@@ -1965,6 +2009,292 @@ def phase_hybrid(torch, pkg):
             state.task.goal_distance[:, 0].median())})
 
 
+def _ik_solvers(pkg, torch):
+  """The Adroit IK solver on the card (float32) and on the CPU in float64
+  and float32."""
+  ik, hands = pkg['ik_solver'], pkg['hands']
+  return (ik.IKSolver(hands.AdroitHand()),
+          *(ik.IKSolver(hands.AdroitHand(), device='cpu', dtype=dt)
+            for dt in (torch.float64, torch.float32)))
+
+
+def _ik_targets(torch, cpu64, n, seed):
+  """n target sets (n, k, 3) in float64: the fingertips' FK at joint
+  positions uniform in 0.8 of the ranges (examples/inverse_kinematics.py).
+  """
+  lo, hi = torch.as_tensor(cpu64._lo), torch.as_tensor(cpu64._hi)
+  u = torch.rand((n, lo.shape[0]), generator=torch.Generator().manual_seed(
+      seed), dtype=torch.float64)
+  return cpu64._tips(cpu64._fk(0.8 * lo + 0.8 * (hi - lo) * u))
+
+
+def _tf32_round(torch, x):
+  """float32 x rounded to TF32's 10-bit mantissa (to nearest, ties to
+  even), as a TF32 matrix product rounds its operands."""
+  i = x.contiguous().view(torch.int32)
+  return ((i + 0xFFF + ((i >> 13) & 1)) & -8192).view(torch.float32)
+
+
+def _ik_qdot_readings(torch, solver, cpu64, cpu32, inits, targets):
+  """The first iteration's q-dot of rows (inits (N, A, nj), targets (N, k,
+  3), both float64 on the CPU) against the CPU float64 port at the card's
+  float32 states, relative to the reference's max-abs: the card, the CPU
+  float32 port, and two card runs with TF32 products: `card_tf32_switch`
+  sets torch's TF32 switch (cuBLAS may keep FP32 kernels at these
+  shapes), and `card_tf32` (the fault the hold must catch) rounds the
+  stacked Jacobian, the operand of JᵀJ and Jᵀv, to TF32."""
+  n, a, nj = inits.shape
+  q0 = inits.reshape(n * a, nj).to(torch.float32)
+  t = targets.to(torch.float32).repeat_interleave(a, dim=0)
+  ref = cpu64._qdot(cpu64._fk(q0.double()), t.double())
+
+  def rel(got):
+    return ((got.to('cpu', torch.float64) - ref).abs().max()
+            / ref.abs().max()).item()
+
+  def card():
+    qc, tc = q0.to(solver.model.device), t.to(solver.model.device)
+    return solver._qdot(solver._fk(qc), tc)
+
+  out = {'card': rel(card()),
+         'cpu_float32': rel(cpu32._qdot(cpu32._fk(q0), t))}
+  torch.backends.cuda.matmul.allow_tf32 = True
+  try:
+    out['card_tf32_switch'] = rel(card())
+  finally:
+    torch.backends.cuda.matmul.allow_tf32 = False
+  mapper = type(solver._mapper)
+  real = mapper.stacked_jacobian
+  mapper.stacked_jacobian = lambda self, data: _tf32_round(
+      torch, real(self, data))
+  try:
+    out['card_tf32'] = rel(card())
+  finally:
+    mapper.stacked_jacobian = real
+  return out
+
+
+def phase_ik_readings(torch, pkg, seeds):
+  """The ik phase's q-dot hold on `seeds` (IK_HELD_SETS sets x IK_ATTEMPTS
+  attempts each), sound and faulted: the readings IK_QDOT_LIMIT is set
+  from."""
+  solver, cpu64, cpu32 = _ik_solvers(pkg, torch)
+  readings = []
+  for seed in seeds:
+    targets = _ik_targets(torch, cpu64, IK_HELD_SETS, SEED + 11 + seed)
+    inits = cpu64._initial_configurations(
+        IK_HELD_SETS, IK_ATTEMPTS, torch.Generator().manual_seed(SEED + seed))
+    readings.append({'seed': seed, **_ik_qdot_readings(
+        torch, solver, cpu64, cpu32, inits, targets)})
+  emit({'phase': 'ik_readings', 'sets': IK_HELD_SETS,
+        'attempts': IK_ATTEMPTS, 'readings': readings,
+        'sound_max': max(max(r['card'], r['cpu_float32']) for r in readings),
+        'faulted_min': min(r['card_tf32'] for r in readings)})
+
+
+def phase_ik(torch, pkg, smi):
+  """IKSolver.solve_batch on the card (Adroit, float32): IK_SETS feasible
+  target sets x IK_ATTEMPTS attempts, up to IK_MAX_STEPS steps.  One
+  warm-up and IK_TIMED timed calls: target sets/s, the loop's iterations,
+  launches per iteration, device busy and idle of one call, peak memory;
+  K1-K6 launches (the path runs none).  Holds: each solved set's FK in
+  float64 within 1.5 tol of its targets and its joints in range; at least
+  IK_SOLVED_MIN solved; all tips 2 m overhead fails; the first
+  iteration's q-dot of IK_HELD_SETS sets within IK_QDOT_LIMIT of the CPU
+  float64 port, the TF32 fault outside it.  Reported: success agreement
+  with the CPU float64 port from the same starts, IK_HELD_SETS sets."""
+  solver, cpu64, cpu32 = _ik_solvers(pkg, torch)
+  dev = solver.model.device
+  check(dev.type == 'cuda' and solver.model.dtype == torch.float32,
+        'ik device')
+  targets64 = _ik_targets(torch, cpu64, IK_SETS, SEED + 11)
+  targets = targets64.to(dev, torch.float32)
+
+  def solve():
+    return solver.solve_batch(targets, gen=torch.Generator().manual_seed(
+        SEED), linear_tol=IK_TOL, max_steps=IK_MAX_STEPS,
+                              num_attempts=IK_ATTEMPTS)
+
+  solve()
+  torch.cuda.synchronize()
+  reset_counts(pkg)
+  torch.cuda.reset_peak_memory_stats()
+  walls = []
+  for _ in range(IK_TIMED):
+    t0 = time.perf_counter()
+    qpos, ok = solve()
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter() - t0)
+  peak = torch.cuda.max_memory_allocated()
+  launches = read_counts(pkg)
+  check(sum(launches.values()) == 0, f'ik launched {launches}')
+  window = _busy_window(torch, solve)
+  inits = solver._initial_configurations(
+      IK_SETS, IK_ATTEMPTS, torch.Generator().manual_seed(SEED))
+  rows = IK_SETS * IK_ATTEMPTS
+  _, _, steps = solver._attempt(
+      inits.reshape(rows, -1).to(dev, torch.float32),
+      targets.repeat_interleave(IK_ATTEMPTS, dim=0), IK_TOL, IK_MAX_STEPS)
+  iterations = int(steps.max())
+
+  # Holds: FK of each solved set in float64, the joint limits (the card
+  # model's float32 limits), the success count, the overhead set.
+  q64 = qpos.to('cpu', torch.float64)
+  fk_err = torch.linalg.vector_norm(cpu64._tips(cpu64._fk(q64)) - targets64,
+                                    dim=-1).amax(-1)
+  solved = ok.cpu()
+  check(bool((fk_err[solved] <= 1.5 * IK_TOL).all()),
+        f'ik: a solved set misses its targets by {fk_err[solved].max()}')
+  check(bool(((q64 >= torch.as_tensor(solver._lo))
+              & (q64 <= torch.as_tensor(solver._hi))).all()),
+        'ik: a joint outside its range')
+  check(int(solved.sum()) >= IK_SOLVED_MIN,
+        f'ik: {int(solved.sum())} of {IK_SETS} solved')
+  _, over_ok = solver.solve(torch.tensor([[0.0, 0.0, 2.0]] * 5, device=dev),
+                            num_attempts=IK_ATTEMPTS)
+  check(not bool(over_ok), 'ik: the 2 m overhead targets were solved')
+  qdot = _ik_qdot_readings(torch, solver, cpu64, cpu32,
+                           inits[:IK_HELD_SETS], targets64[:IK_HELD_SETS])
+  if IK_QDOT_LIMIT is not None:
+    check(qdot['card'] <= IK_QDOT_LIMIT, f'ik: q-dot vs CPU float64 {qdot}')
+    check(qdot['card_tf32'] > IK_QDOT_LIMIT,
+          f'ik: the q-dot hold misses TF32 products {qdot}')
+  _, ok_cpu = cpu64._best(inits[:IK_HELD_SETS], targets64[:IK_HELD_SETS],
+                          IK_TOL, IK_MAX_STEPS)
+  emit({'phase': 'ik', 'hand': 'adroit', 'sets': IK_SETS,
+        'attempts': IK_ATTEMPTS, 'rows': rows, 'max_steps': IK_MAX_STEPS,
+        'tol': IK_TOL, 'wall_s': walls,
+        'target_sets_per_s': IK_SETS * len(walls) / sum(walls),
+        'iterations': iterations, 'row_steps_median': int(steps.median()),
+        'rows_at_max_steps': int((steps == IK_MAX_STEPS).sum()),
+        'launches_per_iteration': window['kernel_launches'] / iterations,
+        'window': window, 'peak_memory_bytes': peak,
+        'solved': int(solved.sum()), 'fk_err_max_solved': float(
+            fk_err[solved].max()) if bool(solved.any()) else None,
+        'overhead_solved': bool(over_ok),
+        'qdot_rel_err': qdot, 'qdot_limit': IK_QDOT_LIMIT,
+        'success_equal_cpu_f64': int((ok_cpu == solved[:IK_HELD_SETS]).sum()),
+        'success_compared': IK_HELD_SETS, 'kernel_launches': launches,
+        'card': smi})
+
+
+def _wrapped_task(pkg, alpha):
+  """reorient.state_dense with its hand effector in
+  SmoothAction(PreviousAction(.), alpha)."""
+  task = pkg['manipulation'].build_task('reorient', 'state_dense')
+  sm, pa = pkg['smooth_action'], pkg['previous_action']
+  task._hand_effectors = tuple(sm.SmoothAction(pa.PreviousAction(e), alpha)
+                               for e in task._hand_effectors)
+  return task
+
+
+def _wrapped_run(torch, pkg, device, dtype, batch, acts):
+  """A BatchedEnvironment of the wrapped reorient task on `device`: reset
+  of B_EPISODES episodes (the first `batch` kept), the steps of `acts`
+  with WRAP_RESET_ROWS reset before the last.  Returns the run (states
+  and time steps after reset and each step, as _episode_errs takes
+  them), the state right after the forced reset, and the tries each
+  rejection search picked (reset's; the forced reset's)."""
+  env = pkg['environment'].GoalEnvironment(_wrapped_task(pkg, WRAP_ALPHA),
+                                           device=device, dtype=dtype)
+  benv = pkg['batched'].BatchedEnvironment(env, B_EPISODES)
+  structs = pkg['structs']
+  with _picks(pkg['hands']) as picks:
+    state, ts = benv.reset(torch.Generator().manual_seed(SEED + 5))
+  state, ts = structs.tree_map(lambda x: x[:batch], (state, ts))
+  gen = torch.Generator().manual_seed(SEED + 6)
+  states, tss = [state], [ts]
+  for i, a in enumerate(acts[:, :batch]):
+    if i == len(acts) - 1:
+      done = torch.zeros(batch, dtype=torch.bool, device=env.device)
+      done[list(WRAP_RESET_ROWS)] = True
+      with _picks(pkg['hands']) as reset_picks:
+        state = benv._merge_resets(state, done, gen)
+      after_reset = state
+    state, ts = benv.step(state, a.to(env.device, env.dtype), gen)
+    states.append(state)
+    tss.append(ts)
+  return (states, tss), after_reset, ([p[:ENV_CHECKED] for p in picks],
+                                      reset_picks), env
+
+
+def phase_wrappers(torch, pkg):
+  """The effector wrappers in a batched reorient environment on the card
+  (B_EPISODES episodes, ENV_STEPS steps, WRAP_RESET_ROWS reset before the
+  last), against the same run on the CPU in float64 (its first
+  ENV_CHECKED episodes): the state at TASK_LIMITS['reorient'], the
+  wrapper state equal (flags exactly, commands within float32 rounding),
+  the reset rows' smoothing restarted; then a checkpoint save / load of
+  the card's state, bit-equal."""
+  structs, ckpt = pkg['structs'], pkg['checkpoint']
+  k = ENV_CHECKED
+  cpu_env = pkg['environment'].GoalEnvironment(
+      _wrapped_task(pkg, WRAP_ALPHA), device='cpu', dtype=torch.float64)
+  acts = _task_actions(torch, cpu_env, SEED + 2)
+  t0 = time.perf_counter()
+  card, card_reset, card_picks, env = _wrapped_run(
+      torch, pkg, None, torch.float32, B_EPISODES, acts)
+  torch.cuda.synchronize()
+  card_wall = time.perf_counter() - t0
+  ref, ref_reset, ref_picks, _ = _wrapped_run(torch, pkg, 'cpu',
+                                              torch.float64, k, acts)
+  prefix = env.task.hand_effectors[0].prefix
+  head = ([structs.tree_map(lambda x: x[:k], st) for st in card[0]],
+          [structs.tree_map(lambda x: x[:k], t) for t in card[1]])
+  other = _other_picks((None, None, card_picks[0]), (None, None,
+                                                     ref_picks[0]))
+  if any(int(a[i]) != int(b[i]) for a, b in zip(card_picks[1], ref_picks[1])
+         for i in range(len(WRAP_RESET_ROWS))):
+    other = sorted(set(other) | set(WRAP_RESET_ROWS))
+  rows = torch.tensor([i for i in range(k) if i not in other])
+  check(len(rows) >= k // 2, f'wrappers: placements differ in {other}')
+  errs = _episode_errs(torch, pkg, head, ref, rows)
+  for i, e in enumerate(errs):
+    check(not _over(e, TASK_LIMITS['reorient']),
+          f'wrappers: call {i} vs CPU float64: {e}')
+  # The wrapper state, every checked row, after each call.
+  eff_err = 0.0
+  for st, cst in zip(head[0], ref[0]):
+    got, want = st.eff_state[prefix], cst.eff_state[prefix]
+    check(sorted(got) == ['previous_action', 'smooth_first', 'smooth_prev'],
+          f'wrappers: state keys {sorted(got)}')
+    check(bool((got['smooth_first'].cpu() == want['smooth_first']).all()),
+          'wrappers: smooth_first differs from the CPU')
+    for key in ('smooth_prev', 'previous_action'):
+      eff_err = max(eff_err, (_to_cpu64(torch, got[key]) - want[key]).abs()
+                    .max().item())
+  check(eff_err <= 1e-6, f'wrappers: effector state vs CPU {eff_err}')
+  # The reset rows start afresh; the others go on smoothing.
+  reset_rows = torch.zeros(B_EPISODES, dtype=torch.bool)
+  reset_rows[list(WRAP_RESET_ROWS)] = True
+  first = card_reset.eff_state[prefix]['smooth_first'].cpu()
+  check(bool((first == reset_rows).all()), f'wrappers: smooth_first {first}')
+  last = card[0][-1].eff_state[prefix]['smooth_prev']
+  cmd = torch.clamp(acts[-1].to(env.device, env.dtype), env._act_min,
+                    env._act_max)
+  dev_rows = reset_rows.to(env.device)
+  check(torch.equal(last[dev_rows], cmd[dev_rows]),
+        'wrappers: a reset row smoothed its first command')
+  check(bool(((last[~dev_rows] - cmd[~dev_rows]).abs().amax(-1) > 0).all()),
+        'wrappers: a running row stopped smoothing')
+  # Checkpoint round trip of the card's last state.
+  final = card[0][-1]
+  with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, 'state')
+    ckpt.save(path, final)
+    back = ckpt.load(path, structs.tree_map(torch.zeros_like, final))
+  leaves, got = structs.tree_leaves(final), structs.tree_leaves(back)
+  check(len(leaves) == len(got) and all(
+      a.device == b.device and a.dtype == b.dtype and torch.equal(a, b)
+      for a, b in zip(leaves, got)), 'wrappers: checkpoint round trip')
+  emit({'phase': 'wrappers', 'batch': B_EPISODES, 'steps': ENV_STEPS,
+        'alpha': WRAP_ALPHA, 'reset_rows': list(WRAP_RESET_ROWS),
+        'card_wall_s': card_wall, 'cpu_other_try': other,
+        'cpu_f64_max_err': {'reset': errs[0], 'steps': errs[1:]},
+        'eff_state_max_err': eff_err,
+        'checkpoint_leaves': len(leaves), 'checkpoint_bit_equal': True})
+
+
 def _rotating(torch, args, fn):
   """fn over copies of its operands that together hold at least eight
   times the card's L2 cache (L2_BYTES), one copy per call in turn, so
@@ -2864,9 +3194,10 @@ def main():
                       help='with --closed-loop: stop after this many seconds '
                            'and report how far the run got')
   parser.add_argument('--hold-readings', type=int, metavar='N',
-                      help='run only the reach and juggle holds against the '
-                           'CPU float64 port on N seeds, sound and faulted '
-                           '(the readings TASK_LIMITS is set from)')
+                      help='run only the reach and juggle holds and the IK '
+                           'q-dot hold against the CPU float64 port on N '
+                           'seeds, sound and faulted (the readings '
+                           'TASK_LIMITS and IK_QDOT_LIMIT are set from)')
   args = parser.parse_args()
 
   import torch
@@ -2876,8 +3207,12 @@ def main():
     return 2
   sys.path.insert(0, ROOT)
   import dexterity_tpu_torch  # noqa: F401  (TF32 off)
-  from dexterity_tpu_torch import manipulation
+  from dexterity_tpu_torch import environment, manipulation
   from dexterity_tpu_torch.core import types
+  from dexterity_tpu_torch.effectors.wrappers import (previous_action,
+                                                      smooth_action)
+  from dexterity_tpu_torch.envs import batched
+  from dexterity_tpu_torch.inverse_kinematics import ik_solver
   from dexterity_tpu_torch.manipulation.goals import prop_orientation
   from dexterity_tpu_torch.models import hands
   from dexterity_tpu_torch.physics import (constraint, cuda_build, linalg_cuda,
@@ -2885,13 +3220,15 @@ def main():
   from dexterity_tpu_torch.physics.collision import primitives
   from dexterity_tpu_torch.planners import common, ilqr, sqp
   from dexterity_tpu_torch.planners import predictive_sampling as ps
-  from dexterity_tpu_torch.utils import structs
+  from dexterity_tpu_torch.utils import checkpoint, structs
   pkg = dict(types=types, step=step, linalg_cuda=linalg_cuda,
              tree_cuda=tree_cuda, cuda_build=cuda_build,
              primitives=primitives, common=common, manipulation=manipulation,
              smooth=smooth, constraint=constraint, ps=ps, ilqr=ilqr, sqp=sqp,
              prop_orientation=prop_orientation, structs=structs,
-             hands=hands)
+             hands=hands, environment=environment, batched=batched,
+             ik_solver=ik_solver, smooth_action=smooth_action,
+             previous_action=previous_action, checkpoint=checkpoint)
 
   smi = nvidia_smi_line()
   phase_probe(torch, pkg, smi)
@@ -2902,6 +3239,7 @@ def main():
     else:
       phase_hold_readings(torch, pkg,
                           [SEED + i for i in range(args.hold_readings)])
+      phase_ik_readings(torch, pkg, range(args.hold_readings))
     print(smi, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),
@@ -2930,6 +3268,8 @@ def main():
   k3_out = phase_ilqr_k3(torch, pkg)
   phase_sqp(torch, pkg, ilqr_out)
   phase_hybrid(torch, pkg)
+  phase_ik(torch, pkg, smi)
+  phase_wrappers(torch, pkg)
   path_launches = {'main_path': planner_out['launches'],
                    'environment': env_launches,
                    'entry:cholesky_factor': factor_launches,

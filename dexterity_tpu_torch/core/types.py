@@ -55,6 +55,14 @@ class EqType(enum.IntEnum):
   TENDON = 3
 
 
+class ObjType(enum.IntEnum):
+  """Object types addressable by Jacobians and velocity queries: the
+  subset the reference's mapper validates (body, geom, site)."""
+  BODY = 0
+  GEOM = 1
+  SITE = 2
+
+
 QPOS_WIDTH = {JointType.FREE: 7, JointType.BALL: 4,
               JointType.SLIDE: 1, JointType.HINGE: 1}
 DOF_WIDTH = {JointType.FREE: 6, JointType.BALL: 3,

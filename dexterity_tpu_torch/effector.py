@@ -2,7 +2,8 @@
 
 An effector turns an action sub-vector into actuator controls:
 `set_control` maps (model, data, state, command) -> (data, state), where
-`state` is the effector's own dictionary (filters, previous actions, ...).
+`state` is the effector's own dictionary (filters, previous actions, ...)
+with a row per episode: every leaf carries the episodes' batch shape.
 Action slices into the task's merged action vector are fixed when the
 model is compiled.
 """
@@ -21,8 +22,10 @@ class Effector(abc.ABC):
   def after_compile(self, model) -> None:
     """Hook called once after the task model is compiled."""
 
-  def initial_state(self, model) -> Dict[str, Any]:
-    """Returns the effector's initial per-episode state."""
+  def initial_state(self, model, batch=()) -> Dict[str, Any]:
+    """Returns the initial per-episode state of the episodes of batch
+    shape `batch` (none: one episode): leaves of shape batch + (n,)."""
+    del model, batch
     return {}
 
   @abc.abstractmethod

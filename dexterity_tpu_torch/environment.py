@@ -187,8 +187,8 @@ class GoalEnvironment:
       new_state[eff.prefix] = st
     return data, new_state
 
-  def _initial_eff_state(self):
-    return {eff.prefix: eff.initial_state(self.model)
+  def _initial_eff_state(self, batch=()):
+    return {eff.prefix: eff.initial_state(self.model, batch)
             for eff in self.task.hand_effectors}
 
   def _task_state_after_goal(self, goal, ok, time, goal_distance):
@@ -225,7 +225,7 @@ class GoalEnvironment:
     cur = task.goal_generator.current_state(model, data)
     tstate = self._task_state_after_goal(
         goal, ok, data.time, task.goal_generator.goal_distance(goal, cur))
-    eff_state = self._initial_eff_state()
+    eff_state = self._initial_eff_state(batch)
     state = EnvState(data=data, task=tstate, eff_state=eff_state,
                      step_count=torch.zeros(batch, dtype=torch.int32,
                                             device=self.device))

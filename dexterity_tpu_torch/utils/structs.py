@@ -50,6 +50,13 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
   return tree
 
 
+def tree_leaves(tree: Any) -> list:
+  """The tensors of `tree` in `tree_map`'s order."""
+  out = []
+  tree_map(lambda x: out.append(x) or x, tree)
+  return out
+
+
 def _rows(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
   return mask.reshape(mask.shape + (1,) * (x.ndim - mask.ndim))
 

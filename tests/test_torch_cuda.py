@@ -646,3 +646,74 @@ def test_ilqr_solve_runs_on_card_with_tangent_launches():
   assert LC.launches['cholesky_solve'] == 0
   assert bool(torch.isfinite(act).all() and torch.isfinite(st.cost).all())
   assert bool(((act >= planner._lo) & (act <= planner._hi)).all())
+
+
+def _ik_targets(cpu, n, seed):
+  """n fingertip target sets: the FK (CPU, float64) at joint positions
+  uniform in 0.8 of the joint ranges."""
+  lo, hi = torch.as_tensor(cpu._lo), torch.as_tensor(cpu._hi)
+  u = torch.rand((n, lo.shape[0]), generator=torch.Generator().manual_seed(
+      seed), dtype=torch.float64)
+  return cpu._tips(cpu._fk(0.8 * lo + 0.8 * (hi - lo) * u))
+
+
+@pytest.mark.cuda
+def test_ik_solve_batch_on_card():
+  """solve_batch of 16 feasible target sets on the card (30 attempts):
+  at least 13 solved (tests/test_ik.py's 4 in 5), each solution's FK in
+  float64 within 1.5 tol of its targets and its joints in range.  No
+  tensor of the attempts and the selection leaves the card: no operation
+  takes a card tensor to the host, and the only reads are the loop's
+  exit test, one per iteration."""
+  _cuda()
+  from torch.utils._python_dispatch import TorchDispatchMode
+
+  from dexterity_tpu_torch.inverse_kinematics import ik_solver
+  from dexterity_tpu_torch.models import hands
+  solver = ik_solver.IKSolver(hands.AdroitHand())
+  cpu = ik_solver.IKSolver(hands.AdroitHand(), device='cpu',
+                           dtype=torch.float64)
+  targets = _ik_targets(cpu, 16, 0)
+  solver.solve_batch(targets, gen=torch.Generator().manual_seed(1))
+  inits = solver._initial_configurations(16, 30,
+                                         torch.Generator().manual_seed(2))
+
+  class OffCard(TorchDispatchMode):
+    to_host, reads = [], 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+      out = func(*args, **(kwargs or {}))
+      if func is torch.ops.aten._local_scalar_dense.default:
+        OffCard.reads += 1
+        return out
+      ins = [a for a in args if isinstance(a, torch.Tensor)]
+      outs = out if isinstance(out, (tuple, list)) else (out,)
+      if any(a.is_cuda for a in ins) and any(
+          isinstance(o, torch.Tensor) and not o.is_cuda for o in outs):
+        self.to_host.append(str(func))
+      return out
+
+  with OffCard() as watch:
+    qpos, ok = solver._best(inits, targets.reshape(16, -1), 1e-3, 100)
+  assert watch.to_host == []
+  assert 1 <= OffCard.reads <= 101
+  assert qpos.is_cuda and ok.is_cuda and qpos.dtype == torch.float32
+  assert int(ok.sum()) >= 13
+  q64 = qpos.double().cpu()
+  err = torch.linalg.vector_norm(cpu._tips(cpu._fk(q64)) - targets, dim=-1)
+  assert bool((err[ok.cpu()] <= 1.5e-3).all())
+  assert bool((q64 >= torch.as_tensor(cpu._lo)).all())
+  assert bool((q64 <= torch.as_tensor(cpu._hi)).all())
+
+
+def test_ik_solver_needs_a_card_or_the_cpu(monkeypatch):
+  """IKSolver() places its model on cuda: without a card it raises unless
+  the caller asks for the CPU."""
+  from dexterity_tpu_torch.inverse_kinematics import ik_solver
+  from dexterity_tpu_torch.models import hands
+  monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+  with pytest.raises(RuntimeError, match='no CUDA device'):
+    ik_solver.IKSolver(hands.AdroitHand())
+  solver = ik_solver.IKSolver(hands.AdroitHand(), device='cpu')
+  assert solver.model.device == torch.device('cpu')
+  assert solver.model.dtype == torch.float32

@@ -67,7 +67,13 @@ def test_importing_the_port_loads_no_jax():
           '             "manipulation.tasks.juggle",\n'
           '             "manipulation.goals.fingertip_position",\n'
           '             "physics.constraint", "planners.ilqr",\n'
-          '             "planners.sqp"):\n'
+          '             "planners.sqp", "controllers.mapper",\n'
+          '             "controllers.dls.dls", "inverse_kinematics.ik_solver",\n'
+          '             "effectors.wrappers.base",\n'
+          '             "effectors.wrappers.previous_action",\n'
+          '             "effectors.wrappers.smooth_action",\n'
+          '             "manipulation.wrappers", "utils.checkpoint",\n'
+          '             "utils.profiling"):\n'
           '  assert "dexterity_tpu_torch." + name in sys.modules, name\n'
           'bad = [m for m in sys.modules if m.split(".")[0] in '
           '("jax", "dexterity_tpu")]\n'
