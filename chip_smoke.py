@@ -49,6 +49,14 @@ non-zero otherwise, and on any failed check.  Phases, one JSON line each:
      per-environment step_n): wall time of each solve after a warm-up,
      120 K1 + 120 K2 launches per solve, rollout_return of 8 candidates
      held against the port on the CPU in float64.
+  3c. sharded: sharded_solve_batch at the bench configuration on a world
+     of one NCCL rank (FileStore, no TCP port), a warm-up and 2 timed
+     calls, each bit-equal to solve_batch from the same generator seed
+     (actions, nominal, best returns) with 120 K1 + 120 K2 launches; one
+     MPPI sharded_solve (temperature 0.5) bit-equal to solve; the wall of
+     both per call and the all-gather's time.  Multi-rank equality is
+     held on the CPU (tests/test_torch_distributed.py): one card cannot
+     hold two NCCL ranks.
   4. tree sweep: build_tree_sweep (K5 + K6) on the rollouts' states after
      their first control step, against its plain version in float32 and
      float64 (also at B = 37), qm factorable; timed beside
@@ -69,7 +77,8 @@ non-zero otherwise, and on any failed check.  Phases, one JSON line each:
   8. closed_loop: scripts/eval_closed_loop_batch.py's configuration (256
      samples, 2 iterations, horizon 10, 4 knots, the task's 5 substeps,
      refactor every 4, its keep-in-hand shaping) on 4 goals from reset
-     for at most 10 control steps: solve_batch over all goals, then
+     for at most 5 control steps (cut from 10, `reduced`): solve_batch
+     over all goals, then
      env.step; finished episodes frozen.  Median goal distance at the
      start and the end, the episodes that ended, wall per control step,
      and the wall, device busy time and idle share of one solve_batch and
@@ -153,6 +162,21 @@ non-zero otherwise, and on any failed check.  Phases, one JSON line each:
      wrapper state equal (flags exactly, commands within float32
      rounding), the reset rows' smoothing restarted; then a checkpoint
      save / load of the card's state, bit-equal.
+  19. mjcf: each hand (Shadow, Adroit, MPL right) and the reorient arena
+     through the port's export_mjcf (visual primitives kept) and
+     load_mjcf_string, compiled onto the card (the dropped-pair set
+     travels beside the text, which cannot carry it); every array of the
+     reparsed model within one float32 rounding of the original's (mesh
+     geoms, which the export drops, left out), and 256 rows stepped 10
+     environment steps on both (K3 on both) held at MJCF_LIMITS; an
+     export printed at 6 digits is the fault, read beside.
+  20. prune: pair_distance_stats of the reorient arena on the card (256
+     samples, float32) against the CPU float64 port on the same draws,
+     held within PRUNE_RANGE (2 cm) of contact: min, reference-pose and
+     median distances and each sampled distance at PRUNE_LIMITS, no
+     sample on the other side of 0 beyond it, the dropped-pair set equal
+     but for pairs within the limit of a threshold (listed); the CPU
+     float32 port and bfloat16 joint draws (the fault) read beside.
   --profile adds host and device time by stage and device time by kernel
   over one planning control step, and the device busy time and idle share
   over one solve_batch.
@@ -219,7 +243,8 @@ ENV_CHECKED = 8
 # Closed loop: scripts/eval_closed_loop_batch.py's configuration as
 # EVAL_CLOSED_LOOP_r05.json records it (plan_substeps None: the task's 5;
 # refactor every 4), with its keep-in-hand shaping (:66-76).  The default
-# phase runs CL_GOALS goals for at most CL_STEPS control steps;
+# phase runs CL_GOALS goals for at most CL_STEPS control steps (cut from
+# 10 to 5 to keep the script inside its limit as phases were added);
 # --closed-loop SEED runs the bar: BAR_GOALS goals, up to BAR_STEPS.
 CLOSED_LOOP = dict(samples=256, horizon=10, knots=4, temperature=0.0,
                    noise=0.2, iterations=2, noise_decay=0.5,
@@ -229,7 +254,8 @@ CLOSED_LOOP = dict(samples=256, horizon=10, knots=4, temperature=0.0,
 SHAPING = dict(horiz=300.0, drop=2000.0, margin=0.035, vel=0.0)
 SPAWN_CENTER = (0.0, -0.13, 0.16)
 CL_GOALS = 4
-CL_STEPS = 10
+CL_STEPS = 5
+CL_STEPS_BEFORE = 10
 BAR_GOALS = 32
 BAR_STEPS = 300
 # Gradient planners: scripts/eval_ilqr.py's configuration (:36-99, as
@@ -332,6 +358,43 @@ WRAP_ALPHA = 0.3
 WRAP_RESET_ROWS = (1, 5)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and FP32 non-tensor rate.
+# Sharded planner: sharded_solve_batch at the bench configuration
+# on a world of one NCCL rank, a warm-up and SHARDED_TIMED timed calls,
+# each against solve_batch from the same generator seed; one MPPI
+# sharded_solve (temperature MPPI_TEMPERATURE) against solve.
+SHARDED_TIMED = 2
+MPPI_TEMPERATURE = 0.5
+GATHER_REPS = 100
+# MJCF round trip: each hand and the reorient arena exported,
+# reparsed and compiled onto the card; MJCF_BATCH rows stepped
+# MJCF_STEPS environment steps on the original and the reparsed model.
+# The export prints 12 significant digits; the compile casts the float64
+# values to float32, so a reparsed array may differ from the original's
+# by one float32 rounding (2^-23 relative) and by no more.
+MJCF_BATCH = 256
+MJCF_STEPS = 10
+MJCF_ARRAY_RTOL = 2.0 ** -23
+# Pair pruning: pair_distance_stats of the reorient arena on the
+# card in float32 against the CPU float64 port, PRUNE_SAMPLES draws.
+PRUNE_SAMPLES = 256
+PRUNE_NEAR = 0.004
+# The statistics are held within PRUNE_RANGE of contact, where the
+# classification's thresholds (PRUNE_NEAR, 0, -3 mm) lie; beyond it the
+# narrow phase's choice among a pair's candidate points may flip at the
+# rounding level (a box-capsule pair at 7 cm parted by 1.7 mm between the
+# CPU float32 and float64 ports), which no classification reads.
+PRUNE_RANGE = 0.02
+# Limits, by PERF.md §2's rule (the smallest 1, 2 or 5 x 10^k at least 3x
+# the largest sound reading; PERF.md §2 has the readings, taken on an
+# "NVIDIA H100 80GB HBM3, 700.00 W" and the CPU float32 port).  The reparsed
+# models' float32 arrays are the originals' bit for bit, and so were the
+# states after MJCF_STEPS steps on every model: every sound reading was 0,
+# so the hold is bit-equality (the 6-digit export moved qvel by 5.8e-4 to
+# 113 on three of the four models).  Pruning against the CPU float64 port,
+# in metres: statistics 9.09e-8, sampled distances 1.18e-6 on the card and
+# the CPU float32 port alike (bfloat16 draws: 2.8e-4 and 6.7e-2).
+MJCF_LIMITS = dict(qpos=0.0, qvel=0.0)
+PRUNE_LIMITS = dict(stats=5e-7, sample=5e-6)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_F64_FLOPS = 34e12
@@ -386,8 +449,21 @@ def nvidia_smi_line():
 
 def start_states(torch, types, model, batch, gen, band=0.3):
   """Seeded reorient starts: hand hinge joints within a band of their
-  ranges around 0, the cube at the spawn-workspace centre (reorient.py's
-  workspace) with a uniformly random orientation."""
+  ranges around 0 (_hinge_starts), the cube at the spawn-workspace centre
+  (reorient.py's workspace) with a uniformly random orientation."""
+  qpos = _hinge_starts(torch, types, model, batch, gen, band)
+  free = [j for j in range(model.njnt)
+          if model.jnt_type[j] == int(types.JointType.FREE)][0]
+  qa = model.jnt_qposadr[free]
+  qpos[:, qa:qa + 3] = torch.tensor([0.0, -0.13, 0.16], dtype=torch.float64)
+  q = torch.randn(batch, 4, generator=gen, dtype=torch.float64)
+  qpos[:, qa + 3:qa + 7] = q / q.norm(dim=1, keepdim=True)
+  return qpos
+
+
+def _hinge_starts(torch, types, model, batch, gen, band=0.3):
+  """Every limited hinge joint within a band of its range around 0 (0
+  clipped into the range); other joints at qpos0."""
   qpos = model.qpos0.double().cpu().expand(batch, model.nq).clone()
   for j in range(model.njnt):
     if model.jnt_type[j] == int(types.JointType.HINGE) and \
@@ -397,12 +473,6 @@ def start_states(torch, types, model, batch, gen, band=0.3):
       u = torch.rand(batch, generator=gen, dtype=torch.float64) - 0.5
       qpos[:, model.jnt_qposadr[j]] = (mid + band * (hi - lo) * u).clamp(lo,
                                                                          hi)
-  free = [j for j in range(model.njnt)
-          if model.jnt_type[j] == int(types.JointType.FREE)][0]
-  qa = model.jnt_qposadr[free]
-  qpos[:, qa:qa + 3] = torch.tensor([0.0, -0.13, 0.16], dtype=torch.float64)
-  q = torch.randn(batch, 4, generator=gen, dtype=torch.float64)
-  qpos[:, qa + 3:qa + 7] = q / q.norm(dim=1, keepdim=True)
   return qpos
 
 
@@ -1531,6 +1601,8 @@ def phase_closed_loop(torch, pkg, goals, max_steps, seed, bar=False,
       'median_start_err_rad': float(np.median(start_err.double().numpy())),
       'wall_s_per_control_step': walls, 'control_step_windows': windows,
       'kernels_vs_plain': kernel_checks}
+  if not bar:
+    summary['reduced'] = [f'control steps {CL_STEPS_BEFORE} -> {max_steps}']
   emit({'phase': 'closed_loop_bar' if bar else 'closed_loop', **summary})
 
 
@@ -2295,6 +2367,370 @@ def phase_wrappers(torch, pkg):
         'checkpoint_leaves': len(leaves), 'checkpoint_bit_equal': True})
 
 
+# ---------------------------------------------------------------------------
+# Multi-device planner and the MJCF toolchain
+# ---------------------------------------------------------------------------
+
+
+def phase_sharded(torch, pkg, planner_out):
+  """sharded_solve_batch at the bench configuration on a world of one
+  NCCL rank (a FileStore in a temporary directory, no TCP port), bit-equal
+  to solve_batch from the same generator seed, with its K1/K2 launches;
+  one MPPI sharded_solve bit-equal to solve; the all-gather's time."""
+  import dataclasses
+
+  import torch.distributed as dist
+  sharding, distributed = pkg['sharding'], pkg['distributed']
+  types = pkg['types']
+  planner = planner_out['planner']
+  data_b, goals = planner_out['data'], planner_out['goals']
+  dev = planner.device
+  per_solve = ITERATIONS * H * planner.n_plan_substeps * 2
+
+  def same(a, b):
+    return all(torch.equal(x, y) for x, y in zip(
+        (a[0], a[1].nominal, a[1].best_return),
+        (b[0], b[1].nominal, b[1].best_return)))
+
+  def timed(fn):
+    torch.cuda.synchronize()
+    reset_counts(pkg)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, read_counts(pkg)
+
+  def launches_ok(launches):
+    return (launches['cholesky_solve_factor'] == per_solve
+            and launches['cholesky_resolve_const'] == per_solve
+            and launches['cholesky_solve'] == 0
+            and launches['cholesky_factor'] == 0
+            and launches['tree_sweep_fk'] == launches['tree_sweep_dyn'] == 0)
+
+  with tempfile.TemporaryDirectory() as tmp:
+    check(sharding.initialize_distributed(f'file://{tmp}/store', 1, 0),
+          'no process group')
+    try:
+      check(dist.get_backend() == 'nccl', f'backend {dist.get_backend()}')
+      mesh = sharding.make_mesh()
+      check(mesh.size() == 1 and mesh.device_type == 'cuda', 'mesh')
+      calls = []
+      for i in range(1 + SHARDED_TIMED):
+        seed = SEED + 10 + i
+        pst = planner.init_state(streams=STREAMS)
+        sharded, wall_s, launches = timed(
+            lambda: distributed.sharded_solve_batch(
+                planner, mesh, data_b, goals, pst,
+                torch.Generator(device=dev).manual_seed(seed)))
+        plain, wall_u, _ = timed(lambda: planner.solve_batch(
+            data_b, goals, pst, torch.Generator(device=dev).manual_seed(seed)))
+        check(same(sharded, plain),
+              f'sharded_solve_batch differs from solve_batch (call {i})')
+        check(launches_ok(launches), f'sharded launches {launches}')
+        calls.append({'warmup': i == 0, 'seed': seed,
+                      'sharded_wall_s': wall_s, 'solve_batch_wall_s': wall_u,
+                      'launches': launches})
+      # MPPI: the planner's selection rule read at call time.
+      saved = planner.config
+      planner.config = dataclasses.replace(saved,
+                                           temperature=MPPI_TEMPERATURE)
+      try:
+        data0 = types.map_data(data_b, lambda x: x[0])
+        pst0 = planner.init_state()
+        mppi_s, mppi_wall, mppi_launches = timed(
+            lambda: distributed.sharded_solve(
+                planner, mesh, data0, goals[0], pst0,
+                torch.Generator(device=dev).manual_seed(SEED + 20)))
+        mppi_u, mppi_wall_u, _ = timed(lambda: planner.solve(
+            data0, goals[0], pst0,
+            torch.Generator(device=dev).manual_seed(SEED + 20)))
+      finally:
+        planner.config = saved
+      check(same(mppi_s, mppi_u), 'MPPI sharded_solve differs from solve')
+      check(launches_ok(mppi_launches), f'MPPI launches {mppi_launches}')
+      check(bool(torch.isfinite(mppi_s[0]).all()), 'non-finite MPPI action')
+      # The all-gather of one iteration's returns (G·N floats), back to
+      # back: its share of a sharded call.
+      returns = torch.zeros(STREAMS * SAMPLES, dtype=planner.dtype,
+                            device=dev)
+      group = mesh.get_group()
+      gather_ms = _call_ms(
+          torch, lambda: distributed.gather_rows(returns, group), GATHER_REPS)
+    finally:
+      dist.destroy_process_group()
+  timed_calls = calls[1:]
+  emit({'phase': 'sharded', 'backend': 'nccl', 'world': 1,
+        'store': 'FileStore',
+        'config': {'streams': STREAMS, 'samples': SAMPLES,
+                   'iterations': ITERATIONS, 'horizon': H, **PLAN},
+        'calls': calls, 'bit_equal_to_solve_batch': True,
+        'sharded_wall_s_per_call': [c['sharded_wall_s'] for c in timed_calls],
+        'solve_batch_wall_s_per_call': [c['solve_batch_wall_s']
+                                        for c in timed_calls],
+        'launches_per_call': calls[-1]['launches'],
+        'mppi': {'temperature': MPPI_TEMPERATURE, 'bit_equal_to_solve': True,
+                 'sharded_wall_s': mppi_wall, 'solve_wall_s': mppi_wall_u,
+                 'launches': mppi_launches,
+                 'best_return': float(mppi_s[1].best_return)},
+        'all_gather_ms': gather_ms,
+        'all_gather_bytes': returns.numel() * returns.element_size(),
+        'all_gathers_per_call': ITERATIONS + 1})
+
+
+def _model_diff(torch, types, m0, m1):
+  """A reparsed model against the original: every field, the geom rows
+  the export keeps (all but mesh geoms) and the pair tables by geom name.
+  Returns (structure differences, largest relative difference of a float
+  array, its field)."""
+  import dataclasses
+  keep = [i for i in range(m0.ngeom)
+          if m0.geom_type[i] != int(types.GeomType.MESH)]
+  keep_t = torch.as_tensor(keep, dtype=torch.int64, device=m0.device)
+  bad, worst, where = [], 0.0, None
+  for f in dataclasses.fields(types.Model):
+    if not f.init:
+      continue
+    a, b = getattr(m0, f.name), getattr(m1, f.name)
+    if f.name == 'opt':
+      for o in dataclasses.fields(a):
+        x, y = getattr(a, o.name), getattr(b, o.name)
+        if not (torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y):
+          bad.append(f'opt.{o.name}')
+      continue
+    if f.name == 'ngeom':
+      a = len(keep)
+    elif f.name in ('pair_geom1', 'pair_geom2'):
+      a = tuple(m0.geom_names[i] for i in a)
+      b = tuple(m1.geom_names[i] for i in b)
+    elif f.name.startswith('geom_'):
+      a = a[keep_t] if isinstance(a, torch.Tensor) else tuple(
+          a[i] for i in keep)
+    if not isinstance(a, torch.Tensor):
+      if a != b:
+        bad.append(f.name)
+      continue
+    if a.shape != b.shape or a.dtype != b.dtype:
+      bad.append(f'{f.name} shape')
+      continue
+    if not a.is_floating_point():
+      if not torch.equal(a, b):
+        bad.append(f.name)
+      continue
+    fa, fb = torch.isfinite(a), torch.isfinite(b)
+    if not torch.equal(fa, fb) or not torch.equal(a[~fa], b[~fb]):
+      bad.append(f'{f.name} non-finite')
+      continue
+    if bool(fa.any()):
+      rel = ((a - b).abs()[fa] / a.abs()[fa].clamp_min(1e-30)).max().item()
+      if rel > worst:
+        worst, where = rel, f.name
+  return bad, worst, where
+
+
+def _mjcf_roll(torch, pkg, model, qpos, ctrl):
+  """MJCF_STEPS environment steps (step_n, one substep each, full
+  refresh) of the rows from qpos under ctrl: final (qpos, qvel) on the
+  CPU in float64, K3 launches, wall."""
+  types, step = pkg['types'], pkg['step']
+  d = types.make_data(model, (qpos.shape[0],)).replace(
+      qpos=qpos.to(model.device, model.dtype))
+  torch.cuda.synchronize()
+  reset_counts(pkg)
+  t0 = time.perf_counter()
+  for u in ctrl:
+    d = step.step_n(model, d.replace(ctrl=u.to(model.device, model.dtype)),
+                    1, refresh='full')
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  launches = read_counts(pkg)
+  return (_to_cpu64(torch, d.qpos), _to_cpu64(torch, d.qvel),
+          launches['cholesky_solve'], wall)
+
+
+def _export_at(export, spec, digits):
+  """export_mjcf(spec, keep_visual=True) with its vector attributes printed
+  at `digits` significant digits (the fault the mjcf hold must catch)."""
+  import numpy as np
+  fmt = export._fmt
+  export._fmt = lambda arr: ' '.join(
+      f'{float(x):.{digits}g}' for x in np.atleast_1d(np.asarray(arr)))
+  try:
+    return export.export_mjcf(spec, keep_visual=True)
+  finally:
+    export._fmt = fmt
+
+
+def phase_mjcf(torch, pkg):
+  """Each hand and the reorient arena: the port's export_mjcf (visual
+  primitives kept), load_mjcf_string on that text, compile() onto the
+  card; the reparsed model's arrays held to the original compile's within
+  one float32 rounding of the printed precision, and MJCF_BATCH rows
+  stepped MJCF_STEPS steps on both models (K3 on both).  The dropped-pair
+  set travels beside the text: MJCF cannot express it (export.py).  The
+  same run with the export printed at 6 digits is the fault."""
+  export, parser, types = pkg['export'], pkg['parser'], pkg['types']
+  hands = pkg['hands']
+  specs = {'shadow': hands.ShadowHandSeriesE().spec,
+           'adroit': hands.AdroitHand().spec,
+           'mpl_right': hands.MPLHand().spec,
+           'reorient_arena': pkg['manipulation'].build_task(
+               'reorient', 'state_dense').arena.spec}
+  rows = {}
+  for name, spec in specs.items():
+    t0 = time.perf_counter()
+    xml = export.export_mjcf(spec, keep_visual=True)
+    reparsed = parser.load_mjcf_string(xml)
+    host_s = time.perf_counter() - t0
+    faulted = parser.load_mjcf_string(_export_at(export, spec, 6))
+    for s in (reparsed, faulted):
+      s.pruned_pairs = set(spec.pruned_pairs)
+    m0, m1, m6 = spec.compile(), reparsed.compile(), faulted.compile()
+    check(m1.device.type == 'cuda' and m1.dtype == torch.float32,
+          f'{name}: reparsed model not on the card')
+    bad, rel, field = _model_diff(torch, types, m0, m1)
+    check(not bad, f'{name}: reparsed model structure differs: {bad}')
+    check(rel <= MJCF_ARRAY_RTOL,
+          f'{name}: reparsed {field} differs by {rel} relative')
+    _, rel6, field6 = _model_diff(torch, types, m0, m6)
+    gen = torch.Generator().manual_seed(SEED + 30)
+    qpos = _hinge_starts(torch, types, m0, MJCF_BATCH, gen)
+    ctrl = controls(torch, m0, MJCF_STEPS, MJCF_BATCH, gen)
+    runs = {k: _mjcf_roll(torch, pkg, m, qpos, ctrl)
+            for k, m in (('original', m0), ('reparsed', m1),
+                         ('faulted', m6))}
+    q0, v0, k3, wall = runs['original']
+    for k, (q, v, k3_k, _) in runs.items():
+      check(bool(torch.isfinite(q).all() and torch.isfinite(v).all()),
+            f'{name}: non-finite state ({k})')
+      check(k3_k == k3 > 0, f'{name}: K3 launches {k3_k} ({k}) vs {k3}')
+    readings = {k: {'qpos': (runs[k][0] - q0).abs().max().item(),
+                    'qvel': (runs[k][1] - v0).abs().max().item()}
+                for k in ('reparsed', 'faulted')}
+    held = {q: readings['reparsed'][q] <= MJCF_LIMITS[q]
+            for q in MJCF_LIMITS}
+    check(all(held.values()),
+          f'{name}: reparsed state off the original: {readings}')
+    rows[name] = {
+        'export_chars': len(xml), 'export_parse_s': host_s,
+        'ngeom': [m0.ngeom, m1.ngeom], 'npair': m1.npair, 'nv': m1.nv,
+        'array_max_rel': rel, 'array_max_rel_field': field,
+        'faulted_array_max_rel': rel6, 'faulted_array_field': field6,
+        'k3_launches': k3, 'wall_s_per_roll': wall, 'readings': readings}
+  emit({'phase': 'mjcf', 'batch': MJCF_BATCH, 'steps': MJCF_STEPS,
+        'limits': MJCF_LIMITS, 'array_rtol': MJCF_ARRAY_RTOL,
+        'fault': 'export printed at 6 significant digits', 'models': rows})
+
+
+def phase_prune(torch, pkg):
+  """pair_distance_stats of the reorient arena on the card in float32
+  against the CPU float64 port on the same draws.  Held where the
+  classification reads them, within PRUNE_RANGE of contact: the min,
+  reference-pose and median distances of the pairs both give as
+  distances (PRUNE_LIMITS['stats']); no sample on the other side of 0
+  beyond PRUNE_LIMITS['sample'] (the overlap fractions); the dropped-pair
+  set equal but for pairs within the limit of a threshold (listed).  The
+  CPU float32 port and bfloat16 joint draws on the card (the fault) are
+  read beside."""
+  import numpy as np
+  prune = pkg['prune']
+  spec = pkg['manipulation'].build_task('reorient', 'state_dense').arena.spec
+  card = spec.compile()
+  cpu64 = spec.compile(device='cpu', dtype=torch.float64)
+  cpu32 = spec.compile(device='cpu', dtype=torch.float32)
+  torch.cuda.synchronize()
+  reset_counts(pkg)
+  t0 = time.perf_counter()
+  d_card = prune.per_sample_distances(card, PRUNE_SAMPLES, SEED)
+  torch.cuda.synchronize()
+  card_s = time.perf_counter() - t0
+  launches = read_counts(pkg)
+  check(not any(launches.values()), f'pruning launched {launches}')
+  t0 = time.perf_counter()
+  d64 = prune.per_sample_distances(cpu64, PRUNE_SAMPLES, SEED)
+  cpu64_s = time.perf_counter() - t0
+  d32 = prune.per_sample_distances(cpu32, PRUNE_SAMPLES, SEED)
+  draws = prune._sample_qpos
+  prune._sample_qpos = lambda *a: torch.as_tensor(draws(*a)).to(
+      torch.bfloat16).double().numpy()
+  try:
+    d_bf16 = prune.per_sample_distances(card, PRUNE_SAMPLES, SEED)
+  finally:
+    prune._sample_qpos = draws
+  big = 1e9          # the narrow phase's no-contact distance is 1e10
+  ref = prune.distance_stats(d64)
+
+  def reading(d):
+    """Against the float64 port: the largest min / reference-pose /
+    median difference over pairs both give as distances within
+    PRUNE_RANGE, the largest per-sample difference within it, the
+    entries beyond it off by more than the sample limit, and the pairs
+    one side gives as no contact within it (the narrow phase dropping
+    every point of the pair as a duplicate or invalid)."""
+    d = d.to('cpu', torch.float64)
+    st = prune.distance_stats(d)
+    stat_err = 0.0
+    for k in (0, 1, 3):
+      a, b = st[k], ref[k]
+      held = (a < big) & (b < big) & (b < PRUNE_RANGE)
+      if held.any():
+        stat_err = max(stat_err, float(np.abs(a - b)[held].max()))
+    both = (d < big) & (d64 < big)
+    in_range = both & (d64 < PRUNE_RANGE)
+    diff = (d - d64).abs()
+    flips = ((d < big) != (d64 < big)) & (torch.minimum(d, d64) < PRUNE_RANGE)
+    return dict(stats=stat_err, sample=diff[in_range].max().item(),
+                far_outliers=int((diff > PRUNE_LIMITS['sample'])[
+                    both & ~in_range].sum()),
+                flip_pairs=sorted(set(torch.nonzero(flips)[:, 1].tolist()))
+                ), st
+
+  readings = {}
+  readings['card_f32'], st_card = reading(d_card)
+  readings['cpu_f32'], _ = reading(d32)
+  readings['card_bf16_qpos'], _ = reading(d_bf16)
+  sound = readings['card_f32']
+  check(sound['stats'] <= PRUNE_LIMITS['stats'],
+        f'prune statistics off the CPU float64 port by {sound["stats"]}')
+  check(sound['sample'] <= PRUNE_LIMITS['sample'],
+        f'a sampled distance off the CPU float64 port by {sound["sample"]}')
+  dc = d_card.to('cpu', torch.float64)
+  side = (dc < 0) != (d64 < 0)
+  far_side = int((side & (d64.abs() > PRUNE_LIMITS['sample'])).sum())
+  check(far_side == 0, f'{far_side} samples change sides of 0 beyond the '
+                       f'limit')
+  names = [tuple(sorted((card.geom_names[card.pair_geom1[p]],
+                         card.geom_names[card.pair_geom2[p]])))
+           for p in range(card.npair)]
+  explicit = {tuple(sorted((p.geom1, p.geom2))) for p in spec.pairs}
+  dropped_card, far_c, art_c = prune.dropped_pairs(card, st_card, explicit,
+                                                   PRUNE_NEAR)
+  dropped_ref, far_r, art_r = prune.dropped_pairs(cpu64, ref, explicit,
+                                                  PRUNE_NEAR)
+  lim = PRUNE_LIMITS['stats']
+  near_threshold = []
+  for key in sorted(dropped_card ^ dropped_ref):
+    p = names.index(key)
+    # Within the limit of a threshold: `near`, 0 for the reference pose,
+    # -3 mm for the median, a sample on the other side of 0 (the overlap
+    # fractions), or a pair one side gives as no contact.
+    near = (abs(ref[0][p] - PRUNE_NEAR) <= lim or abs(ref[1][p]) <= lim
+            or abs(ref[3][p] + 0.003) <= lim or bool(side[:, p].any())
+            or p in sound['flip_pairs'])
+    check(near, f'pair {key} dropped on one side only, far from every '
+                f'threshold')
+    near_threshold.append(list(key))
+  for r in readings.values():
+    r['flip_pairs'] = len(r['flip_pairs'])
+  emit({'phase': 'prune', 'spec': 'reorient.state_dense arena',
+        'samples': PRUNE_SAMPLES, 'npair': card.npair, 'range': PRUNE_RANGE,
+        'limits': PRUNE_LIMITS, 'readings': readings,
+        'samples_changing_side': int(side.sum()),
+        'dropped': {'card': len(dropped_card), 'cpu_f64': len(dropped_ref),
+                    'far': [far_c, far_r], 'artifact': [art_c, art_r]},
+        'dropped_on_one_side_near_threshold': near_threshold,
+        'card_s': card_s, 'cpu_f64_s': cpu64_s, 'launches': launches})
+
+
 def _rotating(torch, args, fn):
   """fn over copies of its operands that together hold at least eight
   times the card's L2 cache (L2_BYTES), one copy per call in turn, so
@@ -2345,7 +2781,8 @@ def _ilqr_rows(torch, lc, ilqr_out, k3_out):
     a = args[0]
     rows.append((name, {
         'max_abs_err': err, 'ms': ms, 'kernel_ms': ms,
-        'design': _ran_design(names), 'operands': 'rotating, > 2 x L2',
+        'design': _ran_design(names), 'operands': 'rotating, > 8 x L2',
+        'device_ms_by_kernel': names,
         **_timing_row(torch, fn, _rotating(torch, args, plain), lib,
                       a.shape[0], a.shape[-1], kind),
         'path': 'ilqr', 'launches': out['launches'][name]}))
@@ -3182,6 +3619,41 @@ def phase_profile_solve(torch, planner_out):
             p['data'], p['goals'], p['pstate'], p['pgen']))})
 
 
+def load_pkg():
+  """The port's modules the phases use, by short name (imported here, once
+  the card is known to be present; a script that runs single
+  phases takes them from here)."""
+  sys.path.insert(0, ROOT)
+  import dexterity_tpu_torch  # noqa: F401  (TF32 off)
+  from dexterity_tpu_torch import environment, manipulation
+  from dexterity_tpu_torch.core import types
+  from dexterity_tpu_torch.effectors.wrappers import (previous_action,
+                                                      smooth_action)
+  from dexterity_tpu_torch.envs import batched
+  from dexterity_tpu_torch.inverse_kinematics import ik_solver
+  from dexterity_tpu_torch.manipulation.goals import prop_orientation
+  from dexterity_tpu_torch.mjcf import export, parser, prune
+  from dexterity_tpu_torch.models import hands
+  from dexterity_tpu_torch.parallel import sharding
+  from dexterity_tpu_torch.physics import (constraint, cuda_build, linalg_cuda,
+                                           smooth, step, tree_cuda)
+  from dexterity_tpu_torch.physics.collision import primitives
+  from dexterity_tpu_torch.planners import common, distributed, ilqr, sqp
+  from dexterity_tpu_torch.planners import predictive_sampling as ps
+  from dexterity_tpu_torch.utils import checkpoint, structs
+  pkg = dict(types=types, step=step, linalg_cuda=linalg_cuda,
+             tree_cuda=tree_cuda, cuda_build=cuda_build,
+             primitives=primitives, common=common, manipulation=manipulation,
+             smooth=smooth, constraint=constraint, ps=ps, ilqr=ilqr, sqp=sqp,
+             prop_orientation=prop_orientation, structs=structs,
+             hands=hands, environment=environment, batched=batched,
+             ik_solver=ik_solver, smooth_action=smooth_action,
+             previous_action=previous_action, checkpoint=checkpoint,
+             sharding=sharding, distributed=distributed, export=export,
+             parser=parser, prune=prune)
+  return pkg
+
+
 def main():
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument('--profile', action='store_true',
@@ -3205,30 +3677,7 @@ def main():
     print('chip_smoke: no CUDA device; this script runs on the GPU only',
           file=sys.stderr)
     return 2
-  sys.path.insert(0, ROOT)
-  import dexterity_tpu_torch  # noqa: F401  (TF32 off)
-  from dexterity_tpu_torch import environment, manipulation
-  from dexterity_tpu_torch.core import types
-  from dexterity_tpu_torch.effectors.wrappers import (previous_action,
-                                                      smooth_action)
-  from dexterity_tpu_torch.envs import batched
-  from dexterity_tpu_torch.inverse_kinematics import ik_solver
-  from dexterity_tpu_torch.manipulation.goals import prop_orientation
-  from dexterity_tpu_torch.models import hands
-  from dexterity_tpu_torch.physics import (constraint, cuda_build, linalg_cuda,
-                                           smooth, step, tree_cuda)
-  from dexterity_tpu_torch.physics.collision import primitives
-  from dexterity_tpu_torch.planners import common, ilqr, sqp
-  from dexterity_tpu_torch.planners import predictive_sampling as ps
-  from dexterity_tpu_torch.utils import checkpoint, structs
-  pkg = dict(types=types, step=step, linalg_cuda=linalg_cuda,
-             tree_cuda=tree_cuda, cuda_build=cuda_build,
-             primitives=primitives, common=common, manipulation=manipulation,
-             smooth=smooth, constraint=constraint, ps=ps, ilqr=ilqr, sqp=sqp,
-             prop_orientation=prop_orientation, structs=structs,
-             hands=hands, environment=environment, batched=batched,
-             ik_solver=ik_solver, smooth_action=smooth_action,
-             previous_action=previous_action, checkpoint=checkpoint)
+  pkg = load_pkg()
 
   smi = nvidia_smi_line()
   phase_probe(torch, pkg, smi)
@@ -3250,6 +3699,7 @@ def main():
   env_launches, env_k3 = phase_environment(torch, pkg)
   planner_out = phase_planner(torch, pkg)
   phase_planner_per_candidate(torch, pkg, planner_out['walls'])
+  phase_sharded(torch, pkg, planner_out)
   tree_launches, tree_rows = phase_tree_sweep(torch, pkg, main_out)
   factor_launches = phase_factor_entry(torch, pkg, main_out)
   rows = phase_kernels(torch, pkg, main_out)
@@ -3270,6 +3720,8 @@ def main():
   phase_hybrid(torch, pkg)
   phase_ik(torch, pkg, smi)
   phase_wrappers(torch, pkg)
+  phase_mjcf(torch, pkg)
+  phase_prune(torch, pkg)
   path_launches = {'main_path': planner_out['launches'],
                    'environment': env_launches,
                    'entry:cholesky_factor': factor_launches,

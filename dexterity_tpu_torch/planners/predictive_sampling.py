@@ -73,6 +73,12 @@ class PlannerState:
   best_return: torch.Tensor    # (), or (G,): score of nominal on last solve
 
 
+def _shift(plan: torch.Tensor) -> torch.Tensor:
+  """Receding horizon: the plan (..., H, nu) one step on, its last action
+  repeated."""
+  return torch.cat([plan[..., 1:, :], plan[..., -1:, :]], dim=-2)
+
+
 class _RewardState:
   """Minimal task-state view for reward evaluation during planning."""
 
@@ -264,21 +270,20 @@ class PredictiveSampling:
       return z
     return torch.einsum('hk,nku->nhu', self._interp, z)
 
-  def _one_iteration(self, data, goal, nominal, gen, noise_mult):
-    """Samples around `nominal`, evaluates, returns (plan, best
-    return)."""
-    cfg = self.config
-    noise = self._sample_noise(gen, cfg.num_samples - 1) * noise_mult
+  def _candidates(self, nominal, gen, noise_mult):
+    """(N, H, nu) candidates around `nominal`: the nominal itself, then
+    N - 1 noisy copies, clipped to the action range."""
+    noise = self._sample_noise(gen, self.config.num_samples - 1) * noise_mult
     candidates = torch.cat([nominal[None], nominal[None] + noise])
-    candidates = torch.clamp(candidates, self._lo, self._hi)
-    if cfg.batched_rollouts:
-      returns = self.rollout_returns_batched(data, goal, candidates)
-    else:
-      returns = self.rollout_return(
-          *self._broadcast(data, goal, candidates.shape[0]), candidates)
+    return torch.clamp(candidates, self._lo, self._hi)
+
+  def _select(self, candidates, returns):
+    """The plan kept from scored candidates and its return: the argmax
+    (first index on ties) or, at temperature > 0, the MPPI-weighted
+    average normalised by the return spread."""
+    cfg = self.config
     best = torch.argmax(returns)
     if cfg.temperature > 0:
-      # MPPI-style weighted plan average, normalised by the return spread.
       spread = torch.clamp_min(returns.max() - returns.min(), 1e-6)
       w = torch.softmax((returns - returns.max())
                         / (cfg.temperature * spread), dim=0)
@@ -287,6 +292,17 @@ class PredictiveSampling:
     else:
       seq = candidates[best]
     return seq, returns[best]
+
+  def _one_iteration(self, data, goal, nominal, gen, noise_mult):
+    """Samples around `nominal`, evaluates, returns (plan, best
+    return)."""
+    candidates = self._candidates(nominal, gen, noise_mult)
+    if self.config.batched_rollouts:
+      returns = self.rollout_returns_batched(data, goal, candidates)
+    else:
+      returns = self.rollout_return(
+          *self._broadcast(data, goal, candidates.shape[0]), candidates)
+    return self._select(candidates, returns)
 
   def solve(self, data: T.Data, goal: torch.Tensor, pstate: PlannerState,
             gen: torch.Generator):
@@ -301,9 +317,35 @@ class PredictiveSampling:
       best_seq, best_ret = self._one_iteration(data, goal, best_seq, gen,
                                                mult)
       mult = mult * cfg.noise_decay
-    # Receding horizon: shift, repeat the last action.
-    nominal = torch.cat([best_seq[1:], best_seq[-1:]])
-    return best_seq[0], PlannerState(nominal=nominal, best_return=best_ret)
+    return best_seq[0], PlannerState(nominal=_shift(best_seq),
+                                     best_return=best_ret)
+
+  def _flatten_streams(self, data_b: T.Data, goals: torch.Tensor):
+    """G streams' data and goals repeated for their N candidates, as one
+    (G·N) leading axis."""
+    g, n = goals.shape[0], self.config.num_samples
+    bdata = T.map_data(data_b, lambda x: x.unsqueeze(1).expand(
+        (g, n) + x.shape[1:]).reshape((g * n,) + x.shape[1:]))
+    goals_f = goals.unsqueeze(1).expand((g, n) + goals.shape[1:]).reshape(
+        (g * n,) + goals.shape[1:])
+    return bdata, goals_f
+
+  def _candidates_batch(self, best_seq, gen, noise_mult):
+    """(G, N, H, nu) candidates around G nominals, the G streams' noise
+    drawn in one call, (G·(N-1), H, nu)."""
+    cfg = self.config
+    g, n = best_seq.shape[0], cfg.num_samples
+    noise = self._sample_noise(gen, g * (n - 1)).reshape(
+        g, n - 1, cfg.horizon, self.nu) * noise_mult
+    cands = torch.cat([best_seq[:, None], best_seq[:, None] + noise], 1)
+    return torch.clamp(cands, self._lo, self._hi)
+
+  def _select_batch(self, cands, returns):
+    """Each stream's argmax (first index on ties): plans (G, H, nu) and
+    returns (G,) from cands (G, N, H, nu) and returns (G, N)."""
+    best = torch.argmax(returns, dim=1)
+    rows = torch.arange(cands.shape[0], device=cands.device)
+    return cands[rows, best], returns[rows, best]
 
   def solve_batch(self, data_b: T.Data, goals: torch.Tensor, pstates:
                   PlannerState, gen: torch.Generator):
@@ -313,32 +355,21 @@ class PredictiveSampling:
     (actions (G, nu), new PlannerState)."""
     cfg = self.config
     g = goals.shape[0]
-    n = cfg.num_samples
     best_seq = pstates.nominal                           # (G, H, nu)
     best_ret = torch.full((g,), -float('inf'), dtype=self.dtype,
                           device=self.device)
     mult = 1.0
     # The flattened rollout initial state and goals are the same in every
     # iteration: built once.
-    bdata = T.map_data(data_b, lambda x: x.unsqueeze(1).expand(
-        (g, n) + x.shape[1:]).reshape((g * n,) + x.shape[1:]))
-    goals_f = goals.unsqueeze(1).expand((g, n) + goals.shape[1:]).reshape(
-        (g * n,) + goals.shape[1:])
+    bdata, goals_f = self._flatten_streams(data_b, goals)
     for _ in range(max(cfg.iterations, 1)):
-      noise = self._sample_noise(gen, g * (n - 1)).reshape(
-          g, n - 1, cfg.horizon, self.nu) * mult
-      cands = torch.cat([best_seq[:, None], best_seq[:, None] + noise], 1)
-      cands = torch.clamp(cands, self._lo, self._hi)    # (G, N, H, nu)
+      cands = self._candidates_batch(best_seq, gen, mult)
       returns = self.rollout_returns_flat(
-          bdata, goals_f, cands.reshape((g * n,) + cands.shape[2:]))
-      returns = returns.reshape(g, n)
-      best = torch.argmax(returns, dim=1)
-      rows = torch.arange(g, device=self.device)
-      best_seq = cands[rows, best]
-      best_ret = returns[rows, best]
+          bdata, goals_f, cands.reshape((-1,) + cands.shape[2:]))
+      best_seq, best_ret = self._select_batch(cands,
+                                              returns.reshape(g, -1))
       mult = mult * cfg.noise_decay
-    nominal = torch.cat([best_seq[:, 1:], best_seq[:, -1:]], dim=1)
-    return best_seq[:, 0], PlannerState(nominal=nominal,
+    return best_seq[:, 0], PlannerState(nominal=_shift(best_seq),
                                         best_return=best_ret)
 
   def action(self, env_state, pstate: PlannerState, gen: torch.Generator):

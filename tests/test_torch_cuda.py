@@ -330,6 +330,48 @@ def test_small_solve_batch_on_card():
 
 
 @pytest.mark.cuda
+def test_sharded_solve_batch_at_one_nccl_rank_is_solve_batch(tmp_path):
+  """sharded_solve_batch on a world of one NCCL rank (FileStore) is
+  solve_batch bit for bit from the same generator seed, with solve_batch's
+  K1/K2 launches."""
+  _cuda()
+  import torch.distributed as dist
+  from dexterity_tpu_torch.core import types
+  from dexterity_tpu_torch.manipulation.goals import prop_orientation
+  from dexterity_tpu_torch.parallel import sharding
+  from dexterity_tpu_torch.planners import distributed
+  from dexterity_tpu_torch.planners import predictive_sampling as ps
+  task = manipulation.build_task('reorient', 'state_dense')
+  cfg = ps.PredictiveSamplingConfig(horizon=2, num_samples=8, iterations=2,
+                                    plan_substeps=3)
+  planner = ps.PredictiveSampling(task, cfg)
+  data = types.make_data(planner.model, (2,))
+  goals = prop_orientation.uniform_quaternion(
+      torch.Generator(device='cuda').manual_seed(1), (2,))
+  assert sharding.initialize_distributed(f'file://{tmp_path}/store', 1, 0)
+  try:
+    assert dist.get_backend() == 'nccl'
+    mesh = sharding.make_mesh()
+    LC.reset_launches()
+    sharded = distributed.sharded_solve_batch(
+        planner, mesh, data, goals, planner.init_state(streams=2),
+        torch.Generator(device='cuda').manual_seed(0))
+    torch.cuda.synchronize()
+    launches = dict(LC.launches)
+  finally:
+    dist.destroy_process_group()
+  plain = planner.solve_batch(data, goals, planner.init_state(streams=2),
+                              torch.Generator(device='cuda').manual_seed(0))
+  for got, want in ((sharded[0], plain[0]),
+                    (sharded[1].nominal, plain[1].nominal),
+                    (sharded[1].best_return, plain[1].best_return)):
+    assert torch.equal(got, want)
+  per_solve = cfg.iterations * cfg.horizon * planner.n_plan_substeps * 2
+  assert launches['cholesky_solve_factor'] == per_solve
+  assert launches['cholesky_resolve_const'] == per_solve
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize('b', [1, 7, 1000, 1024])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 def test_tree_dyn_matches_plain_on_card(dtype, b):

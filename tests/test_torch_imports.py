@@ -17,7 +17,10 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _port_files():
-  out = [os.path.join(_ROOT, 'chip_smoke.py')]
+  # The spawned ranks' helper of tests/test_torch_distributed.py runs in
+  # processes that must not load JAX.
+  out = [os.path.join(_ROOT, 'chip_smoke.py'),
+         os.path.join(_ROOT, 'tests', 'torch_dist_ranks.py')]
   for base, _, files in os.walk(os.path.join(_ROOT, 'dexterity_tpu_torch')):
     out += [os.path.join(base, f) for f in files if f.endswith('.py')]
   return sorted(out)
@@ -73,7 +76,10 @@ def test_importing_the_port_loads_no_jax():
           '             "effectors.wrappers.previous_action",\n'
           '             "effectors.wrappers.smooth_action",\n'
           '             "manipulation.wrappers", "utils.checkpoint",\n'
-          '             "utils.profiling"):\n'
+          '             "utils.profiling", "parallel.sharding",\n'
+          '             "planners.distributed", "mjcf.stl",\n'
+          '             "mjcf.primitive_fit", "mjcf.parser", "mjcf.export",\n'
+          '             "mjcf.prune"):\n'
           '  assert "dexterity_tpu_torch." + name in sys.modules, name\n'
           'bad = [m for m in sys.modules if m.split(".")[0] in '
           '("jax", "dexterity_tpu")]\n'
