@@ -106,8 +106,8 @@ non-zero otherwise, and on any failed check.  Phases, one JSON line each:
      steps; every episode must register a solve and see reward 0.
   11. suite: scripts/bench_suite.py, every manipulation.ALL_NAMES task
      through BatchedEnvironment.step_with_metrics under uniform random
-     actions at B = 4096: 2 warm-up and the reference's 100 timed steps
-     (`reduced` is empty: no cut), env steps/s, substeps/s, episodes,
+     actions at B = 4096: 2 warm-up and 50 timed steps (cut from the
+     reference's 100 in `reduced`), env steps/s, substeps/s, episodes,
      mean return, K3 launches, the device idle share of one step, peak
      memory; K3 held against its plain version and float64 on reach's and
      juggle's own Newton Hessian and Euler matrix at (4096, n, n).
@@ -177,6 +177,20 @@ non-zero otherwise, and on any failed check.  Phases, one JSON line each:
      sample on the other side of 0 beyond it, the dropped-pair set equal
      but for pairs within the limit of a threshold (listed); the CPU
      float32 port and bfloat16 joint draws (the fault) read beside.
+  21. render: `renderer` gives the MuJoCo version and GL backend, or
+     `absent: <the ImportError>`.  Always: export_mjcf(include_meshes=True)
+     of the reorient and reach arenas and of each hand (the mesh assets,
+     every file under the port's assets/meshes, every STL read with finite
+     vertices, the visual mesh geoms, the MPL's dual-use visuals), and the
+     card's side of the vision path: reach state_dense at B = 8, reset and
+     3 steps, each step followed by rendering.host_state (one copy of qpos
+     and mocap to the host, equal to the state), K3 above 0.  Where mujoco
+     imports: reach VISION_ONLY on the card at B = 8 (front_close (8, 84,
+     84, 3) uint8 on cuda, not black, the renderer's model with meshes, K3
+     above 0), the pixel hold against the CPU float64 port from the same
+     draws at PIXEL_LIMITS (hinges moved by 0.01 rad and TF32 products read
+     beside), and reorient state_dense against VISION_ONLY at B = 8 over
+     20 steps (env steps/s, render ms per step, device idle).
   --profile adds host and device time by stage and device time by kernel
   over one planning control step, and the device busy time and idle share
   over one solve_batch.
@@ -197,7 +211,10 @@ CPU float64 port, on seeds 0 to N - 1, for runs that are sound (the card;
 the port on the CPU in float32) and faulted (the card with TF32 matrix
 products; with K3's solution rounded to bfloat16): the readings that
 TASK_LIMITS is set from, one line per task; then phase 17's q-dot hold on
-N seeds, sound and faulted (IK_QDOT_LIMIT's readings).
+N seeds, sound and faulted (IK_QDOT_LIMIT's readings); then the pixel
+hold on N seeds (PIXEL_LIMITS' readings: the card and the CPU float32
+port sound; hinges moved by 0.01 rad and TF32 products faulted), or the
+renderer's absence.
 """
 
 from __future__ import annotations
@@ -330,10 +347,12 @@ ORACLE_EPISODES = 8
 ORACLE_STEPS = 200
 # The suite (scripts/bench_suite.py; BASELINE.json configs[4]: 4096
 # scenarios x all tasks): SUITE_WARMUP steps, then SUITE_STEPS timed steps,
-# the reference's 100 (about 100 s of the script's wall for all four).
+# cut from the reference's 100 (which took 166 s of the script's wall for
+# all four on the card) to keep the script inside 900 s.
 B_SUITE = 4096
 SUITE_WARMUP = 2
-SUITE_STEPS = 100
+SUITE_STEPS = 50
+SUITE_REFERENCE_STEPS = 100
 
 # The ik phase: examples/inverse_kinematics.py's feasible targets (the
 # fingertips' FK at joint positions uniform in 0.8 of the ranges), all
@@ -395,6 +414,23 @@ PRUNE_RANGE = 0.02
 # the CPU float32 port alike (bfloat16 draws: 2.8e-4 and 6.7e-2).
 MJCF_LIMITS = dict(qpos=0.0, qvel=0.0)
 PRUNE_LIMITS = dict(stats=5e-7, sample=5e-6)
+# Rendering: reach VISION_ONLY at RENDER_B, reset and RENDER_STEPS steps
+# (the card's side without MuJoCo: reach state_dense and the state's copy
+# to the host); the throughput over VISION_STEPS reorient steps.  The
+# pixel hold against the CPU float64 port reads the share of pixels whose
+# largest channel differs by more than PIXEL_LEVEL levels and the mean
+# absolute difference; the fault moves every hinge by HINGE_NUDGE rad.
+RENDER_B = 8
+RENDER_STEPS = 3
+VISION_STEPS = 20
+PIXEL_LEVEL = 16
+HINGE_NUDGE = 0.01
+# PIXEL_LIMITS by PERF.md §2's rule from phase_render_readings on 8
+# seeds, run on the CPU with the card's device mapped to it (the card
+# host has no MuJoCo): the CPU float32 port against float64, share
+# 1.77e-5, mean 1.03e-3 levels at most; hinges moved by 0.01 rad 3.30e-2
+# and 1.53 at least.
+PIXEL_LIMITS = dict(share_over_level=1e-4, mean_abs=5e-3)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_F64_FLOPS = 34e12
@@ -424,6 +460,16 @@ def emit(obj):
 def check(cond, what):
   if not cond:
     raise AssertionError(what)
+
+
+def tf32(torch, fn):
+  """fn() with every float32 matrix product in TF32 (a fault the holds
+  read beside their sound runs)."""
+  torch.backends.cuda.matmul.allow_tf32 = True
+  try:
+    return fn()
+  finally:
+    torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def reset_counts(pkg):
@@ -1257,13 +1303,6 @@ def phase_hold_readings(torch, pkg, seeds):
   manip, lc = pkg['manipulation'], pkg['linalg_cuda']
   real_k3 = lc.cholesky_solve
 
-  def tf32(fn):
-    torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-      return fn()
-    finally:
-      torch.backends.cuda.matmul.allow_tf32 = False
-
   def k3_bf16(fn):
     lc.cholesky_solve = lambda h, g: real_k3(h, g).bfloat16().to(g.dtype)
     try:
@@ -1284,7 +1323,7 @@ def phase_hold_readings(torch, pkg, seeds):
       for what, fn, faulted in (
           ('card', run(card), False),
           ('cpu_float32', run(cpu[torch.float32]), False),
-          ('card_tf32', lambda: tf32(run(card)), True),
+          ('card_tf32', lambda: tf32(torch, run(card)), True),
           ('card_k3_bfloat16', lambda: k3_bf16(run(card)), True)):
         entry = {'seed': seed}
         try:
@@ -1461,8 +1500,8 @@ def phase_suite(torch, pkg):
     emit({'phase': 'suite', 'task': name, **tasks[name]})
     del state, metrics, benv, env
     torch.cuda.empty_cache()
-  # No cut: the reference's B and timed steps.
-  emit({'phase': 'suite_summary', 'batch': B_SUITE, 'reduced': {},
+  emit({'phase': 'suite_summary', 'batch': B_SUITE,
+        'reduced': [f'timed steps {SUITE_REFERENCE_STEPS} -> {SUITE_STEPS}'],
         'env_steps_per_s': {k: v['env_steps_per_s'] for k, v in tasks.items()},
         'device_idle_share': {k: v['step_window']['device_idle_share']
                               for k, v in tasks.items()}})
@@ -1722,12 +1761,7 @@ def _lin_faulted(torch, lc, fn):
   """fn's linearization under the faults the hold must catch: TF32 matrix
   products, and K2's tangent rounded to bfloat16 (the rules' entry
   _rule_resolve patched)."""
-  out = {}
-  torch.backends.cuda.matmul.allow_tf32 = True
-  try:
-    out['tf32'] = fn()
-  finally:
-    torch.backends.cuda.matmul.allow_tf32 = False
+  out = {'tf32': tf32(torch, fn)}
   real = lc._rule_resolve
 
   def rounded(fac, g):
@@ -2130,11 +2164,7 @@ def _ik_qdot_readings(torch, solver, cpu64, cpu32, inits, targets):
 
   out = {'card': rel(card()),
          'cpu_float32': rel(cpu32._qdot(cpu32._fk(q0), t))}
-  torch.backends.cuda.matmul.allow_tf32 = True
-  try:
-    out['card_tf32_switch'] = rel(card())
-  finally:
-    torch.backends.cuda.matmul.allow_tf32 = False
+  out['card_tf32_switch'] = tf32(torch, lambda: rel(card()))
   mapper = type(solver._mapper)
   real = mapper.stacked_jacobian
   mapper.stacked_jacobian = lambda self, data: _tf32_round(
@@ -2729,6 +2759,327 @@ def phase_prune(torch, pkg):
                     'far': [far_c, far_r], 'artifact': [art_c, art_r]},
         'dropped_on_one_side_near_threshold': near_threshold,
         'card_s': card_s, 'cpu_f64_s': cpu64_s, 'launches': launches})
+
+
+# ---------------------------------------------------------------------------
+# Rendering: the render meshes, the state's trip to the host, the pixels
+# ---------------------------------------------------------------------------
+
+
+def _mujoco_probe():
+  """(the mujoco module or None, the `renderer` entry): the import alone
+  decides whether the phase renders (load_pkg imported rendering, which
+  sets MUJOCO_GL's default, first)."""
+  try:
+    import mujoco
+  except ImportError as exc:
+    return None, f'absent: {exc}'
+  return mujoco, (f'mujoco {mujoco.__version__}, '
+                  f'MUJOCO_GL={os.environ.get("MUJOCO_GL")}')
+
+
+def _mesh_exports(pkg):
+  """export_mjcf(include_meshes=True) of the reorient and reach arenas
+  and of each hand: the mesh assets, every file found under the port's
+  assets/meshes and read by mjcf/stl.py with finite vertices, the visual
+  mesh geoms (never colliding), the MPL's dual-use visuals and the
+  primitives they hide in group 4."""
+  import xml.etree.ElementTree as ET
+
+  import numpy as np
+  export, hands, stl = pkg['export'], pkg['hands'], pkg['stl']
+  root = os.path.join(os.path.dirname(os.path.abspath(pkg['meshes'].__file__)),
+                      'assets', 'meshes') + os.sep
+  manip = pkg['manipulation']
+  specs = {'reorient_arena': manip.build_task('reorient',
+                                              'state_dense').arena.spec,
+           'reach_arena': manip.build_task('reach', 'state_dense').arena.spec,
+           'shadow': hands.ShadowHandSeriesE().spec,
+           'adroit': hands.AdroitHand().spec,
+           'mpl_left': hands.MPLHand(side=hands.HandSide.LEFT).spec,
+           'mpl_right': hands.MPLHand().spec}
+  rows = {}
+  for name, spec in specs.items():
+    t0 = time.perf_counter()
+    tree = ET.fromstring(export.export_mjcf(spec, keep_visual=True,
+                                            include_meshes=True))
+    export_s = time.perf_counter() - t0
+    files = [m.get('file') for m in tree.iter('mesh')]
+    check(len(files) > 0, f'{name}: no mesh asset in the export')
+    outside = [f for f in files if not (
+        os.path.realpath(f).startswith(os.path.realpath(root))
+        and os.path.isfile(f))]
+    check(not outside, f'{name}: mesh files not under {root}: {outside}')
+    vertices = 0
+    for f in files:
+      v = stl.load_stl_vertices(f)
+      check(v.shape[0] > 0 and bool(np.isfinite(v).all()),
+            f'{name}: {f} has no or non-finite vertices')
+      vertices += v.shape[0]
+    geoms = list(tree.iter('geom'))
+    meshed = [g for g in geoms if g.get('type') == 'mesh']
+    check(all(g.get('contype') == g.get('conaffinity') == '0'
+              for g in meshed), f'{name}: a visual mesh geom collides')
+    check(all(int(g.get('group')) <= 2 for g in meshed),
+          f'{name}: a visual mesh geom outside groups 0-2')
+    dual = sum(g.get('name').endswith('__visual') for g in meshed)
+    hidden = sum(g.get('group') == '4' for g in geoms
+                 if g.get('type') != 'mesh')
+    if name.startswith('mpl'):
+      check(dual > 0 and hidden >= dual, f'{name}: no dual-use visuals')
+    rows[name] = {'mesh_assets': len(files), 'mesh_geoms': len(meshed),
+                  'dual_use_visuals': dual, 'primitives_in_group_4': hidden,
+                  'stl_vertices': vertices, 'export_s': export_s}
+  return rows
+
+
+def _transfer(torch, pkg):
+  """The card's side of the vision path without the renderer: reach
+  state_dense at RENDER_B on the card, reset and RENDER_STEPS steps, each
+  step followed by rendering.host_state (the one device-to-host copy of
+  qpos and mocap a vision step makes), checked equal to the tensors.
+  Wall of each step and of each copy; K3's launches."""
+  import numpy as np
+  rendering = pkg['rendering']
+  env = pkg['manipulation'].load('reach', 'state_dense')
+  acts = _render_actions(torch, env, SEED, RENDER_STEPS)
+  dev, dtype = env.model.device, env.model.dtype
+  gen = torch.Generator()
+  warm, _ = env.reset(torch.Generator().manual_seed(SEED + 99), (RENDER_B,))
+  env.step(warm, acts[0].to(dev, dtype), gen)
+  rendering.host_state(warm.data)
+  torch.cuda.synchronize()
+  reset_counts(pkg)
+  state, _ = env.reset(torch.Generator().manual_seed(SEED), (RENDER_B,))
+  steps, copies = [], []
+  for a in acts:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = env.step(state, a.to(dev, dtype), gen)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    qpos, mpos, mquat = rendering.host_state(state.data)
+    t2 = time.perf_counter()
+    steps.append((t1 - t0) * 1e3)
+    copies.append((t2 - t1) * 1e3)
+  launches = read_counts(pkg)
+  check(launches['cholesky_solve'] > 0, 'render: K3 was not launched')
+  d = state.data
+  for got, x in ((qpos, d.qpos), (mpos, d.mocap_pos), (mquat, d.mocap_quat)):
+    check(got.shape == tuple(x.shape) and got.dtype == np.float32 and
+          np.array_equal(got, x.cpu().numpy()),
+          'render: host_state differs from the state')
+  return {'task': 'reach.state_dense', 'batch': RENDER_B, 'nq': env.model.nq,
+          'nmocap': env.model.nmocap, 'step_ms': steps, 'copy_ms': copies,
+          'launches': launches}
+
+
+def _render_actions(torch, env, seed, steps):
+  """(steps, RENDER_B, nu) seeded actions in float64 on the CPU, a band
+  of 0.3 of the spec's range around its middle (`controls`' rule)."""
+  lo, hi = _action_bounds(torch, env.action_spec())
+  agen = torch.Generator().manual_seed(seed + 7)
+  u = torch.rand(steps, RENDER_B, lo.shape[0], generator=agen,
+                 dtype=torch.float64)
+  return lo + (hi - lo) * (0.5 + 0.3 * (u - 0.5))
+
+
+def _vision_env(pkg, domain, obs_set, **kw):
+  observations = pkg['observations']
+  preset = getattr(observations.ObservationSet, obs_set)
+  if domain == 'reach':
+    task = pkg['reach'].reach_task(observation_set=preset,
+                                   use_dense_reward=True)
+  else:
+    task = pkg['reorient'].reorient_task(observation_set=preset)
+  return pkg['environment'].GoalEnvironment(task, **kw)
+
+
+def _vision_run(torch, pkg, env, seed, acts, hinge_nudge=0.0):
+  """reset of RENDER_B episodes from `seed` and a step per row of `acts`:
+  each call's front_close images as numpy (uint8), the states rendered
+  with every hinge moved by `hinge_nudge` rad where it is not 0 (the
+  fault; the episode itself is not moved); and the last time step."""
+  import numpy as np
+  rendering, types = pkg['rendering'], pkg['types']
+  hinges = [env.model.jnt_qposadr[j] for j in range(env.model.njnt)
+            if env.model.jnt_type[j] == int(types.JointType.HINGE)]
+  dev, dtype = env.model.device, env.model.dtype
+  gen = torch.Generator()
+  state, ts = env.reset(torch.Generator().manual_seed(seed), (RENDER_B,))
+  out = []
+
+  def images(state, ts):
+    if not hinge_nudge:
+      return ts.observation['front_close'].cpu().numpy()
+    qpos, mpos, mquat = rendering.host_state(state.data)
+    qpos = qpos.copy()
+    qpos[..., hinges] += hinge_nudge
+    return env.task._camera_obs._renderer.render_batch(
+        qpos, mpos, mquat)[..., 0, :, :, :]
+
+  out.append(images(state, ts))
+  for a in acts:
+    state, ts = env.step(state, a.to(dev, dtype), gen)
+    out.append(images(state, ts))
+  return np.stack(out), ts
+
+
+def _pixel_reading(got, ref):
+  """The worst over calls of (the share of pixels, counted (y, x) per
+  image, whose largest channel difference exceeds PIXEL_LEVEL levels; the
+  mean absolute difference over every value, in levels)."""
+  import numpy as np
+  diff = np.abs(got.astype(np.int16) - ref.astype(np.int16))
+  share = (diff.max(-1) > PIXEL_LEVEL).reshape(diff.shape[0], -1).mean(-1)
+  mean = diff.reshape(diff.shape[0], -1).mean(-1)
+  return {'share_over_level': float(share.max()),
+          'mean_abs': float(mean.max())}
+
+
+def _pixel_over(reading):
+  return [k for k, lim in PIXEL_LIMITS.items() if not reading[k] <= lim]
+
+
+def _pixel_readings(torch, pkg, seed, card, cpu64, cpu32=None):
+  """One seed's pixel readings on reach VISION_ONLY against the CPU
+  float64 port from the same draws: the card (sound), the card with every
+  hinge moved by HINGE_NUDGE before rendering and the card with TF32
+  products (faulted), and the CPU float32 port (sound) if given."""
+  acts = _render_actions(torch, card, seed, RENDER_STEPS)
+  ref, _ = _vision_run(torch, pkg, cpu64, seed, acts)
+  runs = {'card': lambda: _vision_run(torch, pkg, card, seed, acts),
+          'card_hinges_moved': lambda: _vision_run(
+              torch, pkg, card, seed, acts, HINGE_NUDGE),
+          'card_tf32': lambda: tf32(
+              torch, lambda: _vision_run(torch, pkg, card, seed, acts))}
+  if cpu32 is not None:
+    runs['cpu_float32'] = lambda: _vision_run(torch, pkg, cpu32, seed, acts)
+  out = {}
+  for what, fn in runs.items():
+    r = _pixel_reading(fn()[0], ref)
+    out[what] = {**r, 'over_limits': _pixel_over(r)}
+  return out
+
+
+def _vision_throughput(torch, pkg):
+  """Reorient state_dense against VISION_ONLY at RENDER_B over
+  VISION_STEPS steps (tools/bench_vision.py's measure, zero actions after
+  a warm-up step): env steps/s of each; the host ms of rendering per step
+  (the camera observables' as_dict, timed) against the rest of the step;
+  the device idle share of one vision step."""
+  out = {}
+  for obs_set in ('STATE_ONLY', 'VISION_ONLY'):
+    env = _vision_env(pkg, 'reorient', obs_set)
+    gen = torch.Generator()
+    state, _ = env.reset(torch.Generator().manual_seed(SEED), (RENDER_B,))
+    zeros = torch.zeros(RENDER_B, env.action_spec().shape[0],
+                        device=env.model.device)
+    state, _ = env.step(state, zeros, gen)
+    cams = env.task._camera_obs
+    render_ms = []
+    if cams.enabled:
+      real = cams.as_dict
+
+      def timed(model, data):
+        t0 = time.perf_counter()
+        out = real(model, data)
+        render_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+      cams.as_dict = timed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(VISION_STEPS):
+      state, ts = env.step(state, zeros, gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    window = _busy_window(torch, lambda: env.step(state, zeros, gen))
+    step_ms = wall / VISION_STEPS * 1e3
+    row = {'env_steps_per_s': RENDER_B * VISION_STEPS / wall,
+           'step_ms': step_ms, 'step_window': window}
+    if render_ms:
+      render = sum(render_ms[:VISION_STEPS]) / VISION_STEPS
+      row.update(render_ms_per_step=render,
+                 rest_of_step_ms=step_ms - render,
+                 render_share=render / step_ms)
+      cams._renderer.close()
+    out[obs_set] = row
+  return out
+
+
+def phase_render(torch, pkg):
+  """The render slice on the card.  Always: the include_meshes export of
+  each arena and hand (_mesh_exports), MuJoCo's presence (`renderer`),
+  and the card's side of the vision path (_transfer: a reach step and
+  the state's one copy to the host, K3 held above 0).  Where mujoco
+  imports: reach VISION_ONLY on the card (front_close (RENDER_B, 84, 84,
+  3) uint8 on cuda, not black, the renderer's model with meshes, K3
+  launched), the pixel hold against the CPU float64 port at PIXEL_LIMITS
+  (faults read beside), and the vision throughput."""
+  t_phase = time.perf_counter()
+  mujoco, renderer = _mujoco_probe()
+  row = {'phase': 'render', 'renderer': renderer,
+         'exports': _mesh_exports(pkg), 'transfer': _transfer(torch, pkg)}
+  if mujoco is not None:
+    card = _vision_env(pkg, 'reach', 'VISION_ONLY')
+    acts = _render_actions(torch, card, SEED, RENDER_STEPS)
+    reset_counts(pkg)
+    imgs, ts = _vision_run(torch, pkg, card, SEED, acts)
+    launches = read_counts(pkg)
+    check(launches['cholesky_solve'] > 0, 'render: K3 not launched')
+    img = ts.observation['front_close']
+    check(tuple(img.shape) == (RENDER_B, 84, 84, 3) and
+          img.dtype == torch.uint8 and img.is_cuda and int(img.max()) > 0,
+          f'render: front_close {tuple(img.shape)} {img.dtype} {img.device}')
+    nmesh = card.task._camera_obs._renderer._mm.nmesh
+    check(nmesh > 0, 'render: the renderer model has no mesh')
+    cpu64 = _vision_env(pkg, 'reach', 'VISION_ONLY', device='cpu',
+                        dtype=torch.float64)
+    readings = _pixel_readings(torch, pkg, SEED, card, cpu64)
+    check(not readings['card']['over_limits'],
+          f'render: pixels off the CPU float64 port: {readings["card"]}')
+    for env in (card, cpu64):
+      env.task._camera_obs._renderer.close()
+    row.update(vision={'task': 'reach.VISION_ONLY', 'batch': RENDER_B,
+                       'steps': RENDER_STEPS, 'images': list(imgs.shape),
+                       'nmesh': nmesh, 'launches': launches},
+               pixel_limits=PIXEL_LIMITS, pixel_level=PIXEL_LEVEL,
+               pixel_readings=readings,
+               throughput=_vision_throughput(torch, pkg))
+  else:
+    row['pixels'] = 'held on the CPU only (tests/test_torch_rendering.py)'
+  row['phase_s'] = time.perf_counter() - t_phase
+  emit(row)
+
+
+def phase_render_readings(torch, pkg, seeds):
+  """The pixel hold's readings on `seeds` (PIXEL_LIMITS' source): sound
+  (the card; the CPU float32 port) and faulted (hinges moved by
+  HINGE_NUDGE; TF32 products), each against the CPU float64 port."""
+  mujoco, renderer = _mujoco_probe()
+  if mujoco is None:
+    emit({'phase': 'render_readings', 'renderer': renderer})
+    return
+  card = _vision_env(pkg, 'reach', 'VISION_ONLY')
+  cpu64, cpu32 = (_vision_env(pkg, 'reach', 'VISION_ONLY', device='cpu',
+                              dtype=dt)
+                  for dt in (torch.float64, torch.float32))
+  readings = {}
+  for seed in seeds:
+    r = _pixel_readings(torch, pkg, seed, card, cpu64, cpu32)
+    for what, v in r.items():
+      readings.setdefault(what, []).append({'seed': seed, **v})
+  for env in (card, cpu64, cpu32):
+    env.task._camera_obs._renderer.close()
+  emit({'phase': 'render_readings', 'renderer': renderer,
+        'task': 'reach.VISION_ONLY', 'batch': RENDER_B, 'steps': RENDER_STEPS,
+        'limits': PIXEL_LIMITS, 'level': PIXEL_LEVEL, 'readings': readings})
+
+
+# ---------------------------------------------------------------------------
+# Timing and the kernel rows
+# ---------------------------------------------------------------------------
 
 
 def _rotating(torch, args, fn):
@@ -3625,15 +3976,17 @@ def load_pkg():
   phases takes them from here)."""
   sys.path.insert(0, ROOT)
   import dexterity_tpu_torch  # noqa: F401  (TF32 off)
-  from dexterity_tpu_torch import environment, manipulation
+  from dexterity_tpu_torch import environment, manipulation, rendering
   from dexterity_tpu_torch.core import types
   from dexterity_tpu_torch.effectors.wrappers import (previous_action,
                                                       smooth_action)
   from dexterity_tpu_torch.envs import batched
   from dexterity_tpu_torch.inverse_kinematics import ik_solver
   from dexterity_tpu_torch.manipulation.goals import prop_orientation
-  from dexterity_tpu_torch.mjcf import export, parser, prune
-  from dexterity_tpu_torch.models import hands
+  from dexterity_tpu_torch.manipulation.shared import observations
+  from dexterity_tpu_torch.manipulation.tasks import reach, reorient
+  from dexterity_tpu_torch.mjcf import export, parser, prune, stl
+  from dexterity_tpu_torch.models import hands, meshes
   from dexterity_tpu_torch.parallel import sharding
   from dexterity_tpu_torch.physics import (constraint, cuda_build, linalg_cuda,
                                            smooth, step, tree_cuda)
@@ -3650,7 +4003,9 @@ def load_pkg():
              ik_solver=ik_solver, smooth_action=smooth_action,
              previous_action=previous_action, checkpoint=checkpoint,
              sharding=sharding, distributed=distributed, export=export,
-             parser=parser, prune=prune)
+             parser=parser, prune=prune, rendering=rendering, stl=stl,
+             meshes=meshes, observations=observations, reach=reach,
+             reorient=reorient)
   return pkg
 
 
@@ -3666,10 +4021,11 @@ def main():
                       help='with --closed-loop: stop after this many seconds '
                            'and report how far the run got')
   parser.add_argument('--hold-readings', type=int, metavar='N',
-                      help='run only the reach and juggle holds and the IK '
-                           'q-dot hold against the CPU float64 port on N '
-                           'seeds, sound and faulted (the readings '
-                           'TASK_LIMITS and IK_QDOT_LIMIT are set from)')
+                      help='run only the reach and juggle holds, the IK '
+                           'q-dot hold and the pixel hold against the CPU '
+                           'float64 port on N seeds, sound and faulted (the '
+                           'readings TASK_LIMITS, IK_QDOT_LIMIT and '
+                           'PIXEL_LIMITS are set from)')
   args = parser.parse_args()
 
   import torch
@@ -3689,6 +4045,7 @@ def main():
       phase_hold_readings(torch, pkg,
                           [SEED + i for i in range(args.hold_readings)])
       phase_ik_readings(torch, pkg, range(args.hold_readings))
+      phase_render_readings(torch, pkg, range(args.hold_readings))
     print(smi, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),
@@ -3722,6 +4079,7 @@ def main():
   phase_wrappers(torch, pkg)
   phase_mjcf(torch, pkg)
   phase_prune(torch, pkg)
+  phase_render(torch, pkg)
   path_launches = {'main_path': planner_out['launches'],
                    'environment': env_launches,
                    'entry:cholesky_factor': factor_launches,

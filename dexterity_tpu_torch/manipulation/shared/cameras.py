@@ -1,12 +1,10 @@
 """Camera configurations (port of
-dexterity_tpu/manipulation/shared/cameras.py).
+dexterity_tpu/manipulation/shared/cameras.py; reference:
+manipulation/shared/cameras.py).
 
-The configurations are ported; rendering is not yet (it comes with
-`rendering.py`).  `add_camera_observables` returns a CameraObservables
-whose `enabled` follows the camera spec; an enabled spec raises
-NotImplementedError when it is built, so no environment silently drops
-pixels.  The state presets keep the camera disabled, so a task's
-observables hold no camera entry.
+Offscreen rendering is host-side (dexterity_tpu_torch.rendering); the
+state presets keep the camera disabled, so their observables hold no
+camera entry.
 """
 
 from __future__ import annotations
@@ -39,24 +37,16 @@ TOP_DOWN = CameraConfig(
     xyaxes=(1.0, 0.0, 0.0, 0.0, 1.0, 0.0))
 
 
-class CameraObservables:
-  """A task's camera observables; only disabled ones can be built."""
-
-  def __init__(self, camera_configs, camera_spec):
-    self.configs = tuple(camera_configs)
-    self.spec = camera_spec
-    if self.enabled:
-      raise NotImplementedError(
-          'camera observables need rendering, which the PyTorch port does '
-          'not have yet; use a state-only observation set')
-
-  @property
-  def enabled(self) -> bool:
-    return bool(getattr(self.spec, 'enabled', False))
-
-
 def add_camera_observables(arena, obs_settings, *camera_configs):
-  """Realizes obs_settings.camera for the given cameras (reference:
-  manipulation/shared/cameras.py:53-64)."""
-  del arena
-  return CameraObservables(camera_configs, obs_settings.camera)
+  """Realizes obs_settings.camera for the given cameras
+  (reference: manipulation/shared/cameras.py:53-64).
+
+  Returns a CameraObservables whose as_dict(model, data) yields one
+  (..., height, width, 3) uint8 observation per camera, rendered on the
+  host (dexterity_tpu_torch.rendering's docstring describes the
+  boundary).  Without mujoco, an enabled camera raises ImportError at its
+  first observation.
+  """
+  from dexterity_tpu_torch import rendering
+  return rendering.CameraObservables(arena.spec, camera_configs,
+                                     obs_settings.camera)

@@ -203,6 +203,8 @@ class ReOrient(task_lib.GoalTask):
     obs = self._hand_obs.as_dict(model, data)
     obs.update(self._prop_obs.as_dict(model, data))
     obs['goal_state'] = task_state.goal[..., :4]
+    if self._camera_obs is not None and self._camera_obs.enabled:
+      obs.update(self._camera_obs.as_dict(model, data))
     return obs
 
   def failure_termination(self, model, data):

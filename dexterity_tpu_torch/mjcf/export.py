@@ -10,9 +10,6 @@ Serves two purposes:
 
 Export is a host tool that returns text: where it reads the compiled pair
 tables it compiles on the CPU in float64, so no tensor reaches a card.
-Render meshes cannot be attached to a spec of the port yet (the render
-slice, ROADMAP queue 1), so `include_meshes=True` raises on a spec that
-carries `spec.meshes`; without them it emits what the JAX package emits.
 """
 
 from __future__ import annotations
@@ -25,6 +22,7 @@ import torch
 from dexterity_tpu_torch.core import spec as S
 from dexterity_tpu_torch.core.types import (ActuatorTrn, BiasType, EqType,
                                             GeomType, JointType)
+from dexterity_tpu_torch.models import meshes as mesh_assets
 
 _GEOM_NAMES = {
     GeomType.PLANE: 'plane', GeomType.SPHERE: 'sphere',
@@ -83,26 +81,33 @@ def export_mjcf(spec: S.ModelSpec, keep_visual: bool = False,
                 include_meshes: bool = False) -> str:
   """Returns an MJCF XML string for the spec.
 
-  Mesh geoms are dropped: the exported model contains exactly the fitted
-  primitives physics simulates (conformance interchange).  With
-  include_meshes=True the JAX package also emits the render meshes of
-  `spec.meshes`; the port cannot attach them yet, and raises
-  NotImplementedError when a spec carries any (ROADMAP queue 1, the
-  render slice).  Without them, the output is the same either way.
+  include_meshes=False (default): mesh geoms dropped — the exported model
+  contains exactly the fitted primitives physics simulates (conformance
+  interchange).  include_meshes=True: visual mesh geoms are emitted with
+  <asset><mesh> entries resolved through spec.meshes (models/meshes.py),
+  dual-use provenance meshes (MPL) are re-emitted as visual-only geoms,
+  and the collision primitives they replace move to geom group 4 so
+  renderers can hide them (rendering.py shows groups 0-2 when meshes are
+  present) — pixels then show the real vendor hand geometry the reference
+  renders.
   """
-  if include_meshes and spec.meshes:
-    raise NotImplementedError(
-        'include_meshes: the port does not attach render meshes yet '
-        '(ROADMAP queue 1, the render slice: models/meshes.py)')
   root = ET.Element('mujoco', model=spec.name)
   ET.SubElement(root, 'compiler', angle='radian', autolimits='true')
   ET.SubElement(root, 'option', timestep=f'{spec.option.timestep:.12g}',
                 gravity=_fmt(spec.option.gravity))
 
+  ctx = {'used': {}} if include_meshes else None
   world = ET.SubElement(root, 'worldbody')
-  _export_body_children(world, spec.worldbody, keep_visual)
+  _export_body_children(world, spec.worldbody, keep_visual, spec, ctx)
   for child in spec.worldbody.children:
-    _export_body(world, child, keep_visual)
+    _export_body(world, child, keep_visual, spec, ctx)
+
+  if ctx and ctx['used']:
+    asset = ET.SubElement(root, 'asset')
+    for name, m in sorted(ctx['used'].items()):
+      ET.SubElement(asset, 'mesh', name=name,
+                    file=mesh_assets.asset_path(m.file),
+                    scale=_fmt(m.scale))
 
   if spec.tendons:
     tend = ET.SubElement(root, 'tendon')
@@ -189,7 +194,7 @@ def export_mjcf(spec: S.ModelSpec, keep_visual: bool = False,
 
 
 def _export_body_children(elem: ET.Element, body: S.BodySpec,
-                          keep_visual: bool):
+                          keep_visual: bool, spec=None, ctx=None):
   if body.inertial is not None:
     ET.SubElement(elem, 'inertial', pos=_fmt(body.inertial.pos),
                   quat=_fmt(body.inertial.quat),
@@ -212,17 +217,43 @@ def _export_body_children(elem: ET.Element, body: S.BodySpec,
     else:
       attrs['limited'] = 'false'
     ET.SubElement(elem, 'joint', **attrs)
+  def _mesh_for(g):
+    if ctx is None or spec is None or not g.mesh:
+      return None
+    return spec.meshes.get(g.mesh)
+
+  emitted_dual = set()
   for g in body.geoms:
     if g.type == GeomType.MESH:
+      m = _mesh_for(g)
+      if m is not None:
+        # Visual mesh geom (never collides in this framework).
+        ctx['used'][g.mesh] = m
+        ET.SubElement(elem, 'geom', name=g.name, type='mesh', mesh=g.mesh,
+                      pos=_fmt(g.pos), quat=_fmt(g.quat), contype='0',
+                      conaffinity='0', group=str(min(g.group, 2)),
+                      rgba=_fmt(g.rgba))
       continue  # mesh geoms are visual-only in this framework
     if not g.collidable and not keep_visual:
       continue
+    m = _mesh_for(g)
+    dual = m is not None and m.emit_on_body
+    group = 4 if dual else min(g.group, 5)
+    if dual and g.mesh not in emitted_dual:
+      # Dual-use vendor mesh (MPL): the fitted primitive simulates it;
+      # re-emit the source mesh as the visible geometry.
+      emitted_dual.add(g.mesh)
+      ctx['used'][g.mesh] = m
+      ET.SubElement(elem, 'geom', name=f'{g.name}__visual', type='mesh',
+                    mesh=g.mesh, pos=_fmt(m.pos), quat=_fmt(m.quat),
+                    contype='0', conaffinity='0', group='1',
+                    rgba=_fmt(g.rgba))
     attrs = dict(name=g.name, type=_GEOM_NAMES[g.type], pos=_fmt(g.pos),
                  quat=_fmt(g.quat), friction=_fmt(g.friction),
                  solref=_fmt(g.solref), solimp=_fmt(g.solimp),
                  margin=f'{g.margin:.12g}', condim=str(g.condim),
                  contype=str(g.contype), conaffinity=str(g.conaffinity),
-                 group=str(min(g.group, 5)), rgba=_fmt(g.rgba))
+                 group=str(group), rgba=_fmt(g.rgba))
     size = np.asarray(g.size)
     if g.type == GeomType.PLANE:
       attrs['size'] = _fmt([max(size[0], 1), max(size[1], 1), 0.1])
@@ -244,11 +275,12 @@ def _export_body_children(elem: ET.Element, body: S.BodySpec,
                   group=str(min(s.group, 5)), rgba=_fmt(s.rgba))
 
 
-def _export_body(parent: ET.Element, body: S.BodySpec, keep_visual: bool):
+def _export_body(parent: ET.Element, body: S.BodySpec, keep_visual: bool,
+                 spec=None, ctx=None):
   attrs = dict(name=body.name, pos=_fmt(body.pos), quat=_fmt(body.quat))
   if body.mocap:
     attrs['mocap'] = 'true'
   elem = ET.SubElement(parent, 'body', **attrs)
-  _export_body_children(elem, body, keep_visual)
+  _export_body_children(elem, body, keep_visual, spec, ctx)
   for child in body.children:
-    _export_body(elem, child, keep_visual)
+    _export_body(elem, child, keep_visual, spec, ctx)

@@ -17,9 +17,9 @@ can hand them another package's draws.  The JAX package's rejection
 environments that have no free try yet, as many tries at once as a fixed
 row budget allows (`first_free_chunked`).
 
-The JAX hand also joins its geoms' mesh provenance with the packaged
-render meshes (`meshes.attach_mesh_assets`); that supplies render-only
-data and changes no Model field, so the port leaves it out.
+Each hand joins its geoms' mesh provenance with the packaged render
+meshes (`meshes.attach_mesh_assets`): render-only data that changes no
+Model field.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ import torch
 
 from dexterity_tpu_torch.core import serialization
 from dexterity_tpu_torch.core.types import ActuatorTrn
+from dexterity_tpu_torch.models import meshes
 
 _ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'assets')
 # Rows (environment x try) one rejection round evaluates at most: the
@@ -146,6 +147,9 @@ class DexterousHand:
 
   def __init__(self, name: Optional[str] = None):
     self.spec = serialization.load_spec(os.path.join(_ASSETS, self.asset))
+    # Join geom mesh provenance with the packaged render meshes so camera
+    # observables show the vendor geometry, not the fitted primitives.
+    meshes.attach_mesh_assets(self.spec, os.path.splitext(self.asset)[0])
     self.name = name or self.spec.name
     self.spec.name = self.name
     self._setup()

@@ -759,3 +759,65 @@ def test_ik_solver_needs_a_card_or_the_cpu(monkeypatch):
   solver = ik_solver.IKSolver(hands.AdroitHand(), device='cpu')
   assert solver.model.device == torch.device('cpu')
   assert solver.model.dtype == torch.float32
+
+
+@pytest.mark.cuda
+def test_one_control_steps_state_reaches_the_host_in_one_copy():
+  """rendering.host_state of a card state: (qpos, mocap_pos, mocap_quat)
+  as numpy, brought over in one device-to-host copy."""
+  _cuda()
+  from torch.utils._python_dispatch import TorchDispatchMode
+
+  from dexterity_tpu_torch import rendering
+  env = manipulation.load('reorient', 'state_dense')
+  gen = torch.Generator().manual_seed(0)
+  state, _ = env.reset(gen, (8,))
+  state, _ = env.step(state, torch.zeros(8, env.action_spec().shape[0]),
+                      gen)
+  data = state.data
+
+  class ToHost(TorchDispatchMode):
+    copies = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+      out = func(*args, **(kwargs or {}))
+      ins = [a for a in args if isinstance(a, torch.Tensor)]
+      if any(a.is_cuda for a in ins) and isinstance(
+          out, torch.Tensor) and not out.is_cuda:
+        ToHost.copies.append(str(func))
+      return out
+
+  with ToHost():
+    qpos, mpos, mquat = rendering.host_state(data)
+  assert len(ToHost.copies) == 1
+  assert qpos.shape == (8, env.model.nq) and qpos.dtype == np.float32
+  assert mpos.shape == (8, env.model.nmocap, 3)
+  assert mquat.shape == (8, env.model.nmocap, 4)
+  np.testing.assert_array_equal(qpos, data.qpos.cpu().numpy())
+  np.testing.assert_array_equal(mpos, data.mocap_pos.cpu().numpy())
+  np.testing.assert_array_equal(mquat, data.mocap_quat.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_reach_vision_observation_on_card():
+  """reach VISION_ONLY on the card: the camera observation is uint8 on
+  cuda, rendered from the vendor meshes (needs mujoco on the host)."""
+  _cuda()
+  pytest.importorskip('mujoco')
+  from dexterity_tpu_torch import environment
+  from dexterity_tpu_torch.manipulation.shared import observations
+  from dexterity_tpu_torch.manipulation.tasks import reach
+  task = reach.reach_task(observations.ObservationSet.VISION_ONLY, True)
+  env = environment.GoalEnvironment(task)
+  gen = torch.Generator().manual_seed(0)
+  LC.reset_launches()
+  state, ts = env.reset(gen, (8,))
+  state, ts = env.step(state, torch.zeros(8, env.action_spec().shape[0]),
+                       gen)
+  img = ts.observation['front_close']
+  assert tuple(img.shape) == (8, 84, 84, 3)
+  assert img.dtype == torch.uint8 and img.is_cuda
+  assert int(img.max()) > 0
+  assert task._camera_obs._renderer._mm.nmesh > 0
+  assert LC.launches['cholesky_solve'] > 0
+  task._camera_obs._renderer.close()

@@ -15,6 +15,7 @@ batched solve rounds differently from JAX's vmapped one, and the stiff
 contact solve amplifies it (PERF.md §7).
 """
 
+import dataclasses
 import types as pytypes
 
 import jax
@@ -310,12 +311,14 @@ def test_observable_options_are_validated(envs):
   with pytest.raises(NotImplementedError, match='buffer_size'):
     pobs.HandObservables(ptask.hand, 'x/', {'joint_positions': {
         'enabled': True, 'buffer_size': 2}})
-  with pytest.raises(NotImplementedError, match='rendering'):
-    from dexterity_tpu_torch.manipulation.shared import (cameras,
-                                                         observations)
+  # Cameras render (the JAX package's CameraObservables); depth and
+  # segmentation raise as JAX's do.
+  from dexterity_tpu_torch.manipulation.shared import cameras, observations
+  vision = observations.ObservationSet.VISION_ONLY.value
+  with pytest.raises(NotImplementedError, match='depth/segmentation'):
     cameras.add_camera_observables(
-        None, observations.ObservationSet.VISION_ONLY.value,
-        cameras.FRONT_CLOSE)
+        ptask.arena, dataclasses.replace(vision, camera=dataclasses.replace(
+            vision.camera, depth=True)), cameras.FRONT_CLOSE)
 
 
 # ---------------------------------------------------------------------------

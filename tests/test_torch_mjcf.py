@@ -298,11 +298,12 @@ def test_export_text_matches_jax(name):
   for keep_visual in (False, True):
     assert (pexport.export_mjcf(pspec, keep_visual=keep_visual)
             == jexport.export_mjcf(jspec, keep_visual=keep_visual))
-  # The port's hands carry no render meshes (the render slice): with
-  # include_meshes=True it emits what it emits without.
-  assert not pspec.meshes
-  assert (pexport.export_mjcf(pspec, include_meshes=True)
-          == pexport.export_mjcf(pspec))
+  # The hands carry render meshes; only include_meshes=True emits them
+  # (its text against JAX's: tests/test_torch_meshes.py).
+  assert pspec.meshes
+  with_meshes = pexport.export_mjcf(pspec, include_meshes=True)
+  assert '<mesh ' in with_meshes and '<mesh ' not in pexport.export_mjcf(
+      pspec)
 
 
 @pytest.mark.parametrize('name', _EXPORTS)
@@ -320,10 +321,19 @@ def test_export_for_conformance_does_not_change_the_spec():
 
 
 def test_export_include_meshes_raises_on_a_spec_with_meshes():
+  """It no longer raises: include_meshes=True emits a mesh asset the spec
+  adds, with its file resolved under the port's assets, and the default
+  export is unchanged by it."""
   _, pspec = _specs('adroit')
-  pspec.meshes['F1'] = PS.MeshSpec(name='F1', file='adroit_hand/F1.stl')
-  with pytest.raises(NotImplementedError, match='render slice'):
-    pexport.export_mjcf(pspec, include_meshes=True)
+  pspec.meshes['extra/F1'] = PS.MeshSpec(name='extra/F1',
+                                         file='meshes/adroit_hand/F1.stl')
+  geom = next(g for b in pspec.worldbody.walk() for g in b.geoms
+              if g.mesh == 'adroit_hand/F1')
+  geom.mesh = 'extra/F1'
+  xml = pexport.export_mjcf(pspec, include_meshes=True)
+  path = os.path.join(_ROOT, 'dexterity_tpu_torch', 'models', 'assets',
+                      'meshes', 'adroit_hand', 'F1.stl')
+  assert f'<mesh name="extra/F1" file="{path}"' in xml
   assert pexport.export_mjcf(pspec) == pexport.export_mjcf(
       _specs('adroit')[1])
 
