@@ -10,8 +10,9 @@ non-zero otherwise, and on any failed check.  Phases, one JSON line each:
 
   0. probe: torch/CUDA versions, the card, the kernel build (one nvcc per
      csrc/*.cu source, all started together, sm_90a), and the registers
-     and spills of the register-design kernels, K1-K4 in both types (none
-     may spill), and of the tree-sweep kernels.
+     and spills of the register-design kernels, K1-K4 in both types, and
+     of the wide-design kernels, K1 and K3 in both types (none may spill),
+     and of the tree-sweep kernels.
   1. rollouts: the ShadowHand reorient planning model (4 Newton iterations,
      6 line-search steps, refactor every 2, 3 substeps, contact budget
      16/16, implicit damping, no self-collision) steps B = 1024 rollouts
@@ -72,8 +73,10 @@ non-zero otherwise, and on any failed check.  Phases, one JSON line each:
      profiled kernel names) and time the shared-memory design at the same
      inputs, in turns with it (`previous_design_ms`); K3 also at the
      environment step's shape (`env_shape`).
-  7. juggle size: K1 and K2 at n = 62 (the shared-memory design), checked
-     against their plain versions and timed beside their bounds.
+  7. juggle size: K1 (the wide design) and K2 (the shared-memory design)
+     at n = 62, checked against their plain versions and timed beside
+     their bounds; K1 also in turns with the shared design, beside its
+     plain version and the library call.
   8. closed_loop: scripts/eval_closed_loop_batch.py's configuration (256
      samples, 2 iterations, horizon 10, 4 knots, the task's 5 substeps,
      refactor every 4, its keep-in-hand shaping) on 4 goals from reset
@@ -92,7 +95,7 @@ non-zero otherwise, and on any failed check.  Phases, one JSON line each:
      steps each: wall of reset and steps, device time and idle share of
      one step, K3's launches (9 per substep; 26 in reset: 8 in its
      forward and one settle of 2 substeps) and the design that ran
-     (registers at 24, shared at 62), the first 8 episodes held against
+     (registers at 24, wide at 62), the first 8 episodes held against
      the CPU float64 port at TASK_LIMITS (qpos, qvel, reach's settled
      goals; goal distance, reward and observations relative to their
      max-abs; step_type and the task-state flags equal; an episode is
@@ -112,10 +115,10 @@ non-zero otherwise, and on any failed check.  Phases, one JSON line each:
      memory; K3 held against its plain version and float64 on reach's and
      juggle's own Newton Hessian and Euler matrix at (4096, n, n).
   12. k3_task_sizes: K3 on juggle's own Newton Hessians at (32, 62, 62)
-     and (4096, 62, 62) (shared design) and reach's at (4096, 24, 24)
-     (register design), each held in phase 9 or 11: device time, bound,
-     plain version, library call, per-call time; these rows join the
-     kernels line.
+     and (4096, 62, 62) (wide design) and reach's at (4096, 24, 24)
+     (register design), each held in phase 9 or 11: device time in turns
+     with the shared design (`previous_design_ms`), bound, plain version,
+     library call, per-call time; these rows join the kernels line.
   13. ilqr: ILQR.solve at scripts/eval_ilqr.py's configuration (H = 32,
      4 iterations, 6 line-search steps, refactor every 4, 3 substeps,
      the keep-in-hand shaping as a cost) for 8 goals from
@@ -194,6 +197,13 @@ non-zero otherwise, and on any failed check.  Phases, one JSON line each:
   --profile adds host and device time by stage and device time by kernel
   over one planning control step, and the device busy time and idle share
   over one solve_batch.
+Device times are torch.profiler's summed kernel records over the calls
+made.  The profiler drops the first records of a window on the H100, so
+each window opens with spin kernels left out of its sums (_profiled); it
+stands only where some of them were recorded and, for the kernel rows and
+the environment step windows, where its Cholesky and tree-sweep records
+equal the wrappers' launch counts.  The `profiler_passes` line counts the
+windows, the records dropped in each and the windows that did not stand.
 Then the `kernels` line (K1-K6, K3's rows at the new tasks' sizes, and
 K1, K2 and K3 on the `ilqr` path at the linearization's shapes),
 the card's name and power limit, and as the last line {"ok": true,
@@ -440,6 +450,7 @@ _LP = 'dexterity_tpu/physics/linalg_pallas.py'
 _TP = 'dexterity_tpu/physics/tree_pallas.py'
 _CHOL = 'dexterity_tpu_torch/csrc/cholesky.cu'
 _REGS = 'dexterity_tpu_torch/csrc/cholesky_regs.cu'
+_WIDE = 'dexterity_tpu_torch/csrc/cholesky_wide.cu'
 # The H100's L2 cache (50 MB).
 L2_BYTES = 50 * 2 ** 20
 _TREE = 'dexterity_tpu_torch/csrc/tree_sweep.cu'
@@ -479,6 +490,12 @@ def reset_counts(pkg):
 
 def read_counts(pkg):
   return {**pkg['linalg_cuda'].launches, **pkg['tree_cuda'].launches}
+
+
+def launch_counters(pkg):
+  """The wrappers' launch counters, which _device_profile and _busy_window
+  hold the profiler's kernel records against."""
+  return pkg['linalg_cuda'].launches, pkg['tree_cuda'].launches
 
 
 def nvidia_smi_line():
@@ -546,11 +563,13 @@ def phase_probe(torch, pkg, smi):
   ptxas = {name: [ln.strip() for ln in log.splitlines()
                   if 'registers' in ln or 'spill' in ln][:12]
            for name, log in logs.items()}
-  # The register design's eight kernels (K1-K4 in float32 and float64):
-  # none may spill.
+  # The register design's eight kernels (K1-K4 in float32 and float64) and
+  # the wide design's four (K1 and K3 in both types): none may spill.
   regs = _ptxas_entries(logs.get('cholesky_regs', ''), 'cholesky_regs_')
   check(len(regs) == 8, f'register-design kernels in the ptxas log: {regs}')
-  for label, v in regs.items():
+  wide = _ptxas_entries(logs.get('cholesky_wide', ''), 'cholesky_wide_')
+  check(len(wide) == 4, f'wide-design kernels in the ptxas log: {wide}')
+  for label, v in (*regs.items(), *wide.items()):
     check(v.get('spill_stores') == 0 and v.get('spill_loads') == 0,
           f'{label} spills: {v}')
   tree = _ptxas_entries(logs.get('tree_sweep', ''), 'tree_')
@@ -561,19 +580,22 @@ def phase_probe(torch, pkg, smi):
         'kernel_build_s': build_s,
         'nvcc_parallel_s': cuda_build.build_info.get('seconds'),
         'sources': sorted(cuda_build.sources()), 'ptxas': ptxas,
-        'register_design_ptxas': regs, 'tree_sweep_ptxas': tree})
+        'register_design_ptxas': regs, 'wide_design_ptxas': wide,
+        'tree_sweep_ptxas': tree})
 
 
-# The register design's kernel by its template flags (kEmitFactor, kSolve).
+# The register designs' solve_factor kernels by their template flags:
+# (kEmitFactor, kSolve) in cholesky_regs.cu, (kEmitFactor,) in
+# cholesky_wide.cu.
 _REG_KINDS = {('1', '1'): 'solve_factor', ('0', '1'): 'solve',
-              ('1', '0'): 'factor'}
+              ('1', '0'): 'factor', ('1',): 'solve_factor', ('0',): 'solve'}
 
 
 def _ptxas_entries(log, prefix):
   """Registers and spill bytes of each kernel whose mangled name holds
   `prefix`, from nvcc's `-Xptxas -v` log, labelled kernel_type: the
-  register design's solve_factor kernel by its flags (K1 solve_factor, K3
-  solve, K4 factor).  Names that do not parse as a kernel's are left
+  register designs' solve_factor kernels by their flags (K1 solve_factor,
+  K3 solve, K4 factor).  Names that do not parse as a kernel's are left
   out."""
   out, cur = {}, None
   for ln in log.splitlines():
@@ -738,7 +760,8 @@ def phase_env(torch, pkg, task):
   # Device time of one control step (summed kernel durations) and K3's
   # share of it, with the design K3 ran.
   step_ms, by_kernel = _device_profile(
-      torch, lambda: step.step_n_b(model, data, n, refresh='none'), 1)
+      torch, lambda: step.step_n_b(model, data, n, refresh='none'), 1,
+      launch_counters(pkg))
   k3 = {k: v for k, v in by_kernel.items() if 'cholesky' in k}
   k3_ms = sum(k3.values())
   check(_ran_design(k3) == 'registers', f'K3 ran {list(k3)}')
@@ -882,16 +905,18 @@ def _environment_at_b_env(torch, pkg, env, gen):
   # Device time: reset's forward, the step, and its refresh alone (step_n
   # with no substep runs only the refresh).
   fwd_ms, _ = _device_profile(torch, lambda: step.forward(model, state.data),
-                              1)
+                              1, launch_counters(pkg))
   step_ms, by_kernel = _device_profile(
-      torch, lambda: env.step(state, act.to(dev, dtype), gen), 1)
+      torch, lambda: env.step(state, act.to(dev, dtype), gen), 1,
+      launch_counters(pkg))
   refresh_ms, _ = _device_profile(
-      torch, lambda: step.step_n(model, out.data, 0, refresh='full'), 1)
+      torch, lambda: step.step_n(model, out.data, 0, refresh='full'), 1,
+      launch_counters(pkg))
   k3 = {key: v for key, v in by_kernel.items() if 'cholesky' in key}
   k3_ms = sum(k3.values())
   check(_ran_design(k3) == 'registers', f'K3 ran {list(k3)}')
   window = _busy_window(torch, lambda: env.step(state, act.to(dev, dtype),
-                                                gen))
+                                                gen), launch_counters(pkg))
   return {'batch': B_ENV,
           'launches': {'reset': reset_launches, 'step': step_launches,
                        'unbatched_step': one_launches},
@@ -992,7 +1017,7 @@ def phase_environment(torch, pkg):
               for k in reset_launches}
   # Device time and idle share of one control step (not counted).
   window = _busy_window(torch, lambda: env.step(
-      states[0], acts[0].to(dev, dtype), gen))
+      states[0], acts[0].to(dev, dtype), gen), launch_counters(pkg))
 
   # K3 on this path's own inputs against its plain version and float64,
   # outside the counted and timed calls: the first Newton Hessian of
@@ -1063,15 +1088,16 @@ def _timing_row(torch, fn, plain, lib, b, n, kind):
 def _k3_row(torch, lc, h, g, path, launches, err):
   """K3's kernels-line row on a path's own Newton Hessians (rows, n, n),
   whose hold (_k3_holds) gave `err` against the plain version: the design
-  that ran, device time, and _timing_row's fields (the library call is
+  that ran and the shared design's time in turns with it
+  (_design_turns), and _timing_row's fields (the library call is
   cholesky_ex + cholesky_solve)."""
   fn = lambda: lc.cholesky_solve(h, g)
-  ms, names = _device_profile(torch, fn, 100)
-  ran = _ran_design(names)
-  check(ran == lc._design(h.shape[-1], h.dtype),
-        f'K3 at n={h.shape[-1]} ran {ran}')
+  ms, extra = _design_turns(
+      torch, lc, 'cholesky_solve', lc._MODE_SOLVE, h.shape[-1], fn,
+      lambda: lc._launch(lc._MODE_SOLVE, 'cholesky_solve', h, g,
+                         design='shared'))
   g3 = g[..., None]
-  return {'max_abs_err': err, 'ms': ms, 'kernel_ms': ms, 'design': ran,
+  return {'max_abs_err': err, 'ms': ms, 'kernel_ms': ms, **extra,
           **_timing_row(torch, fn, lambda: lc.solve_plain(h, g),
                         lambda: torch.cholesky_solve(
                             g3, torch.linalg.cholesky_ex(h)[0]),
@@ -1240,11 +1266,12 @@ def phase_task(torch, pkg, domain, variant):
   launches = {k: reset_launches[k] + sum(sl[k] for sl in step_launches)
               for k in reset_launches}
   window = _busy_window(torch, lambda: env.step(
-      states[0], acts[0].to(dev, dtype), gen))
+      states[0], acts[0].to(dev, dtype), gen), launch_counters(pkg))
   _, by_kernel = _device_profile(torch, lambda: env.step(
-      states[0], acts[0].to(dev, dtype), gen), 1)
+      states[0], acts[0].to(dev, dtype), gen), 1, launch_counters(pkg))
   design = _ran_design([k for k in by_kernel if 'cholesky' in k])
-  check(design == lc._design(nv, dtype), f'{name}: K3 ran {design}')
+  check(design == lc._design(nv, dtype, lc._MODE_SOLVE),
+        f'{name}: K3 ran {design}')
 
   # K3 on this path's own inputs, outside the counted and timed calls.
   k3_checks = {}
@@ -1480,7 +1507,8 @@ def phase_suite(torch, pkg):
     check(launches['cholesky_solve'] >= SUITE_STEPS * task.n_substeps
           * (iters + 1), f'suite {name} launches {launches}')
     summ = metrics_lib.summary(metrics)
-    window = _busy_window(torch, lambda: env.step(state, actions(), gen))
+    window = _busy_window(torch, lambda: env.step(state, actions(), gen),
+                          launch_counters(pkg))
     holds = {}
     if name in ('reach.state_dense', 'juggle.state_sparse'):
       _, seen = _k3_holds(torch, lc, lambda: env.step(state, actions(), gen),
@@ -3118,7 +3146,7 @@ def _ilqr_rows(torch, lc, ilqr_out, k3_out):
   rows = []
   for name, args, kind, out, err, wrapper, plain in specs:
     fn = _rotating(torch, args, wrapper)
-    ms, names = _device_profile(torch, fn, 100)
+    ms, names = _device_profile(torch, fn, 100, (lc.launches,))
     if kind == 'resolve':
       # The library's resolve takes an L with the diagonal in place.
       f64 = args[0].double()
@@ -3155,20 +3183,12 @@ def _state_errs(torch, card, ref, k):
   return out
 
 
-def _busy_window(torch, fn):
+def _busy_window(torch, fn, counters=()):
   """Wall time of one call of fn (ended by a synchronize) under the
   profiler, the device time its kernels took, the idle share and the
-  kernel launches."""
-  from torch.autograd import DeviceType
-  from torch.profiler import ProfilerActivity, profile
-  with profile(activities=[ProfilerActivity.CUDA]) as prof:
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-  kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+  kernel launches; a window that stands (_profiled)."""
+  kern, wall_ms = _profiled(torch, fn, 1, counters)
   busy_us = sum(e.self_device_time_total for e in kern)
-  check(busy_us > 0, 'the profiler saw no device time')
   return {'wall_ms': wall_ms, 'device_busy_ms': busy_us / 1e3,
           'device_idle_share': max(0.0, 1 - busy_us / 1e3 / wall_ms),
           'kernel_launches': sum(e.count for e in kern)}
@@ -3189,39 +3209,90 @@ def _call_ms(torch, fn, reps):
   return start.elapsed_time(end) / reps
 
 
-def _device_profile(torch, fn, reps):
+def _device_profile(torch, fn, reps, counters=()):
   """Per-call device time of `fn` (the summed durations of the kernels it
   launches over `reps` calls, from torch.profiler; host work and waits
   between kernels are not counted) and each kernel's per-call time by
-  name."""
-  from torch.autograd import DeviceType
-  from torch.profiler import ProfilerActivity, profile
+  name, from a window that stands (_profiled)."""
   fn()
   torch.cuda.synchronize()
-  # A pass has come back on the H100 with no kernel in it (the library
-  # yardstick's, once); up to three passes.
-  for _ in range(3):
+  kern, _ = _profiled(torch, fn, reps, counters)
+  return (sum(e.self_device_time_total for e in kern) / 1e3 / reps,
+          {e.key: e.self_device_time_total / 1e3 / reps for e in kern})
+
+
+# torch.profiler drops kernel records of a window on the H100, mostly its
+# first ones: none early in a run, more as it goes on, up to all 64 spin
+# kernels below late in it; once 28 of 100 counted launches after 64
+# recorded spins.  So each window opens with SPIN_PREROLL spin kernels,
+# left out of its sums, and stands where its kernels took device time
+# and, given the wrappers' launch counters, it holds a record of every
+# counted launch, or, with none, some spin kernels were recorded (the drop
+# ended inside them).
+SPIN_PREROLL = 64
+_SPIN = 'spin_kernel'
+# The kernels whose wrappers count their launches (linalg_cuda.launches,
+# tree_cuda.launches), by a part of their names.
+_COUNTED_KERNELS = ('cholesky_kernel', 'cholesky_regs_', 'cholesky_wide_',
+                    'tree_fk_kernel', 'tree_dyn_kernel')
+# For the `profiler_passes` line: the windows, how many had each number of
+# records dropped, and the windows that did not stand.
+PROFILER_PASSES = {'windows': 0, 'dropped_records': {}, 'not_standing': []}
+
+
+def _counted(counters):
+  return sum(sum(c.values()) for c in counters)
+
+
+def _profiled(torch, fn, reps, counters=()):
+  """The CUDA kernel records of `reps` calls of fn (the spin pre-roll's
+  left out) from the first window that stands, and its wall ms from the
+  first call to the synchronize after the last; the pre-roll doubles on
+  each retry, up to five windows."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+  for attempt in range(5):
+    spins = SPIN_PREROLL << attempt
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+      for _ in range(spins):
+        torch.cuda._sleep(100)
+      torch.cuda.synchronize()
+      before = _counted(counters)
+      t0 = time.perf_counter()
       for _ in range(reps):
         fn()
       torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
+      wall_ms = (time.perf_counter() - t0) * 1e3
+    launched = _counted(counters) - before
+    cuda = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
-    us = sum(e.self_device_time_total for e in kern)
-    if us > 0:
-      return us / 1e3 / reps, {e.key: e.self_device_time_total / 1e3 / reps
-                               for e in kern}
-  check(False, 'the profiler saw no device time in three passes')
+    kern = [e for e in cuda if _SPIN not in e.key]
+    seen = sum(e.count for e in cuda if _SPIN in e.key)
+    records = sum(e.count for e in kern
+                  if any(p in e.key for p in _COUNTED_KERNELS))
+    PROFILER_PASSES['windows'] += 1
+    dropped = PROFILER_PASSES['dropped_records']
+    dropped[spins - seen] = dropped.get(spins - seen, 0) + 1
+    if (sum(e.self_device_time_total for e in kern) > 0 and
+        (records == launched if counters else seen > 0)):
+      return kern, wall_ms
+    PROFILER_PASSES['not_standing'].append({
+        'spins': spins, 'spins_seen': seen, 'records': records,
+        'launches': launched})
+  check(False, f'no profiler window stood in five: '
+        f'{PROFILER_PASSES["not_standing"][-5:]}')
 
 
-def _device_ms(torch, fn, reps):
-  return _device_profile(torch, fn, reps)[0]
+def _device_ms(torch, fn, reps, counters=()):
+  return _device_profile(torch, fn, reps, counters)[0]
 
 
 def _ran_design(names):
   """The Cholesky design whose kernel appears in profiled kernel names."""
   if any('cholesky_regs' in k for k in names):
     return 'registers'
+  if any('cholesky_wide' in k for k in names):
+    return 'wide'
   return 'shared' if any('cholesky_kernel' in k for k in names) else None
 
 
@@ -3329,13 +3400,13 @@ def phase_kernels(torch, pkg, main):
     prev = lambda: lc._launch(mode, name, src, rhs, design='shared',
                               want_factor=name in ('cholesky_solve_factor',
                                                    'cholesky_factor'))
-    ms, extra = _design_turns(torch, lc, name, n, fn, prev)
+    ms, extra = _design_turns(torch, lc, name, mode, n, fn, prev)
     if name == 'cholesky_solve':
       # K3 at the environment step's shape as well: its first B_ENV
       # matrices (a contiguous slice).
       he, ge = h[:B_ENV], g[:B_ENV]
       env_ms, env_extra = _design_turns(
-          torch, lc, name, n, lambda: lc.cholesky_solve(he, ge),
+          torch, lc, name, mode, n, lambda: lc.cholesky_solve(he, ge),
           lambda: lc._launch(lc._MODE_SOLVE, name, he, ge, design='shared'))
       env_bound, env_by = _bound(B_ENV, n, 4, 'solve')
       extra['env_shape'] = {
@@ -3432,22 +3503,29 @@ def _capture_first(lc, names, fn):
       setattr(lc, nm, real[nm])
 
 
-def _design_turns(torch, lc, name, n, fn, prev):
+def _design_turns(torch, lc, name, mode, n, fn, prev):
   """The design the wrapper ran (`fn`) and the shared-memory design at the
-  same inputs (`prev`), timed in turns: new, previous, previous, new.
-  Returns (ms, the row's design fields); fails unless the wrapper ran the
-  register design, as `_design` says it must at this n."""
-  turns = [_device_profile(torch, f, 100) for f in (fn, prev, prev, fn)]
+  same inputs (`prev`), timed in turns: new, previous, previous, new, each
+  a pass of 100 calls whose 100 kernel records the profiler held (checked
+  against the launch counter); also the shared design's back-to-back time
+  per call by CUDA events (`previous_design_call_ms`), which its kernel
+  time cannot pass.  Returns (ms, the row's design fields);
+  fails unless the wrapper ran the design `_design` names for kernel
+  `mode` at this n (float32), and that design is not the shared one."""
+  turns = [_device_profile(torch, f, 100, (lc.launches,))
+           for f in (fn, prev, prev, fn)]
   ran = {_ran_design(names) for _, names in turns[::3]}
   ran_prev = {_ran_design(names) for _, names in turns[1:3]}
-  check(ran == {lc._design(n, torch.float32)} == {'registers'} and
-        ran_prev == {'shared'},
+  design = lc._design(n, torch.float32, mode)
+  check(ran == {design} and design != 'shared' and ran_prev == {'shared'},
         f'{name} at n={n}: ran {ran}, previous {ran_prev}')
   return (turns[0][0] + turns[3][0]) / 2, {
-      'design': 'registers', 'previous_design': 'shared',
+      'design': design, 'previous_design': 'shared',
       'previous_design_ms': (turns[1][0] + turns[2][0]) / 2,
+      'previous_design_call_ms': _call_ms(torch, prev, 100),
       'turns_ms': {'design': [turns[0][0], turns[3][0]],
-                   'previous_design': [turns[1][0], turns[2][0]]}}
+                   'previous_design': [turns[1][0], turns[2][0]]},
+      'profiler_records_per_turn': 100}
 
 
 def _rank_deficient_checks(torch, lc, n, dev, gen):
@@ -3497,9 +3575,11 @@ def _rank_deficient_checks(torch, lc, n, dev, gen):
 
 
 def phase_juggle_size(torch, pkg, dev):
-  """K1 and K2 at juggle's nv = 62 (no port path reaches it yet): the
-  design that ran, device time beside the bound, and agreement with the
-  plain versions on seeded SPD matrices."""
+  """K1 and K2 at juggle's nv = 62 (no port path reaches them yet), on
+  seeded SPD matrices: agreement with the plain versions, the design that
+  ran, device time and _timing_row's fields.  K1 (the wide design) is
+  timed in turns with the shared design (_design_turns); K2 runs the
+  shared design."""
   lc = pkg['linalg_cuda']
   n = JUGGLE_NV
   gen = torch.Generator().manual_seed(SEED + 5)
@@ -3509,22 +3589,43 @@ def phase_juggle_size(torch, pkg, dev):
   g = torch.randn(B_PLAN, n, generator=gen, dtype=torch.float64).to(
       dev).float()
   fac = lc.factor_plain(h)
-  out = {}
-  for name, fn, plain, kind in (
-      ('cholesky_solve_factor', lambda: lc.cholesky_solve_factor(h, g)[0],
-       lambda: lc.solve_factor_plain(h, g)[0], 'solve_factor'),
-      ('cholesky_resolve_const', lambda: lc.cholesky_resolve_const(fac, g),
-       lambda: lc.resolve_plain(fac, g), 'resolve')):
+
+  def held(name, fn, plain):
     want = plain()
     err = (fn() - want).abs().max().item()
     scale = want.abs().max().item()
     check(err <= 1e-4 * scale, f'{name} at n={n}: {err} > 1e-4 * {scale}')
-    ms, names = _device_profile(torch, fn, 100)
-    ran = _ran_design(names)
-    check(ran == lc._design(n, h.dtype), f'{name} at n={n} ran {ran}')
-    bound_ms, bound_by = _bound(B_PLAN, n, 4, kind)
-    out[name] = {'design': ran, 'ms': ms, 'bound_ms': bound_ms,
-                 'bound_by': bound_by, 'max_abs_err': err, 'scale': scale}
+    return {'max_abs_err': err, 'scale': scale}
+
+  k1 = lambda: lc.cholesky_solve_factor(h, g)[0]
+  k1_plain = lambda: lc.solve_factor_plain(h, g)[0]
+  k1_ms, k1_row = _design_turns(
+      torch, lc, 'cholesky_solve_factor', lc._MODE_SOLVE_FACTOR, n, k1,
+      lambda: lc._launch(lc._MODE_SOLVE_FACTOR, 'cholesky_solve_factor', h,
+                         g, want_factor=True, design='shared'))
+  g3 = g[..., None]
+  k2 = lambda: lc.cholesky_resolve_const(fac, g)
+  k2_plain = lambda: lc.resolve_plain(fac, g)
+  k2_ms, names = _device_profile(torch, k2, 100, (lc.launches,))
+  ran = _ran_design(names)
+  check(ran == lc._design(n, h.dtype, lc._MODE_RESOLVE) == 'shared',
+        f'cholesky_resolve_const at n={n} ran {ran}')
+  # The library's resolve takes an L with the diagonal in place.
+  ll = torch.tril(fac, -1) + torch.diag_embed(
+      1 / torch.diagonal(fac, dim1=-2, dim2=-1))
+  out = {
+      'cholesky_solve_factor': {
+          **k1_row, 'ms': k1_ms, **held('cholesky_solve_factor', k1,
+                                        k1_plain),
+          **_timing_row(torch, k1, k1_plain, lambda: torch.cholesky_solve(
+              g3, torch.linalg.cholesky_ex(h)[0]), B_PLAN, n,
+                        'solve_factor')},
+      'cholesky_resolve_const': {
+          'design': ran, 'ms': k2_ms, **held('cholesky_resolve_const', k2,
+                                             k2_plain),
+          **_timing_row(torch, k2, k2_plain,
+                        lambda: torch.cholesky_solve(g3, ll), B_PLAN, n,
+                        'resolve')}}
   emit({'phase': 'juggle_size', 'shape': [B_PLAN, n, n], 'dtype': 'float32',
         'kernels': out})
 
@@ -3594,12 +3695,13 @@ def phase_tree_sweep(torch, pkg, main):
               ins[3].reshape(4, model.nmocap, b).transpose(0, 1))
   timing = {
       'tree_sweep_fk': dict(
-          kernel_ms=_device_ms(torch, lambda: tc.tree_fk(model, *ins), 50),
+          kernel_ms=_device_ms(torch, lambda: tc.tree_fk(model, *ins), 50,
+                              (tc.launches,)),
           plain_ms=_device_ms(torch, lambda: tc.fk_plain(model, *ins), 5),
           call_ms=_call_ms(torch, lambda: tc.tree_fk(model, *ins), 50)),
       'tree_sweep_dyn': dict(
           kernel_ms=_device_ms(torch, lambda: tc.tree_dyn(
-              model, fk['cdof'], body10, ins[1]), 50),
+              model, fk['cdof'], body10, ins[1]), 50, (tc.launches,)),
           plain_ms=_device_ms(torch, lambda: tc.dyn_plain(
               model, fk['cdof'], body10, ins[1]), 5),
           call_ms=_call_ms(torch, lambda: tc.tree_dyn(
@@ -4086,10 +4188,10 @@ def main():
                    'entry:build_tree_sweep': tree_launches}
   lc = pkg['linalg_cuda']
   juggle = task_out['juggle']
-  k3_rows = [('cholesky_solve_n62_b32', _CHOL, _k3_row(
+  k3_rows = [('cholesky_solve_n62_b32', _WIDE, _k3_row(
       torch, lc, *juggle['k3_inputs'], 'juggle',
       juggle['launches']['cholesky_solve'], juggle['k3_err']))]
-  for name, source, task in (('cholesky_solve_n62_b4096', _CHOL,
+  for name, source, task in (('cholesky_solve_n62_b4096', _WIDE,
                               'juggle.state_sparse'),
                              ('cholesky_solve_n24_b4096', _REGS,
                               'reach.state_dense')):
@@ -4120,6 +4222,7 @@ def main():
     line.append({'name': f'{name}_ilqr', 'kernel': name, 'route': 'cuda',
                  'source': _REGS, 'replaces': replaces[name], **row,
                  'card': smi})
+  emit({'phase': 'profiler_passes', **PROFILER_PASSES})
   print(smi, flush=True)
   emit({'kernels': line})
   emit({'ok': True, 'device': {'platform': 'gpu',

@@ -1,8 +1,9 @@
 """Batched small-matrix Cholesky kernels: hand-written CUDA kernels for
 Hopper (port of dexterity_tpu/physics/linalg_pallas.py).
 
-Four kernels in two sources (`csrc/cholesky_regs.cu`, `csrc/cholesky.cu`),
-each beside its plain PyTorch version:
+Four kernels in three sources (`csrc/cholesky_regs.cu`,
+`csrc/cholesky_wide.cu`, `csrc/cholesky.cu`), each beside its plain
+PyTorch version:
 
   cholesky_solve_factor   <- linalg_pallas._solve_factor_kernel (K1)
   cholesky_resolve_const  <- linalg_pallas._resolve_kernel      (K2)
@@ -28,20 +29,27 @@ Bound on the card: at the planner's shapes (B = 1024, n = 30, float32) K1
 moves 2·B·n²·4 bytes (~7.4 MB, ~2.2 us at 3.35 TB/s), K4 the same less
 the two vectors; K2 and K3 read about half that.  Their ~n³/3 FMAs per
 matrix are far below the FP32 rate, so the bound is memory, but the
-kernels are latency-bound along the n-step serial pivot chain.  Two designs, one warp per matrix in both
+kernels are latency-bound along the n-step serial pivot chain.  At the
+suite's (4096, 62, 62) K3's FMAs set the bound instead.  Three designs
 (see the sources' headers):
 
-  'registers'  `csrc/cholesky_regs.cu`: K1-K4 at n <= 32, a row per
-               lane in registers, the pivot loop unrolled with no branch;
-               the main path (n = 30, float32), the environment step
-               (n = 30) and `cholesky_factor` on their Hessians run it.
-  'shared'     `csrc/cholesky.cu`: the matrix in shared memory, one
-               __syncwarp() per pivot: K1-K4 beyond n = 32.
+  'registers'  `csrc/cholesky_regs.cu`: K1-K4 at n <= 32, one warp per
+               matrix, a row per lane in registers, the pivot loop
+               unrolled with no branch; the main path (n = 30, float32),
+               the environment step (n = 30) and `cholesky_factor` on their
+               Hessians run it.
+  'wide'       `csrc/cholesky_wide.cu`: K1 and K3 at 32 < n <= 64, two
+               warps per matrix, a row per thread in registers, one
+               64-thread named barrier per pivot; the juggle environment's
+               and the suite's K3 (n = 62) run it.
+  'shared'     `csrc/cholesky.cu`: one warp per matrix, the matrix in
+               shared memory, one __syncwarp() per pivot: K2 and K4 beyond
+               n = 32, K1 and K3 beyond n = 64.
 
-`_design(n, dtype)` picks every kernel's design from the shape and type
-alone; no switch overrides it on the public wrappers.
-`_launch(..., design=...)` runs either design at the same inputs, so a card
-run can time the shared design beside the register one.
+`_design(n, dtype, mode)` picks every kernel's design from the shape, type
+and mode alone; no switch overrides it on the public wrappers.
+`_launch(..., design=...)` runs any design at the inputs it takes, so a
+card run can time the shared design beside the one `_design` picks.
 
 The kernels are built at first use by `cuda_build` (nvcc, sm_90a, ctypes).
 
@@ -86,12 +94,19 @@ _MODE_FACTOR = 3
 
 # Largest n of the register design: one row per lane.  (Its code with two
 # rows per lane, n <= 64, spills K1 in both types; see cholesky_regs.cu.)
-# Both designs have every mode.
 _REG_MAX_N = 32
+# Largest n of the wide design (a row per thread over two warps), and the
+# modes it has: K3 and K1.  The shared design has every mode and n.
+_WIDE_MAX_N = 64
+_WIDE_MODES = (_MODE_SOLVE, _MODE_SOLVE_FACTOR)
 
 # Shared memory one block may use on Hopper (227 KB).
 _MAX_SMEM = 232448
-_WARPS_PER_BLOCK = 4
+# Matrices per block: a warp each, up to four as fit ('registers',
+# 'shared'); two warps each, exactly two ('wide': kWideGroups in
+# cholesky_wide.cu; ptxas reserves all 16 named barriers for its kernel,
+# which caps an SM at 4 blocks).
+_PER_BLOCK = {'registers': 4, 'shared': 4, 'wide': 2}
 
 # Launch counts per kernel: one added per kernel launch, nowhere else (the
 # plain versions on CPU tensors do not count).  K2 counts under
@@ -109,13 +124,15 @@ def reset_launches() -> None:
 
 
 def build() -> dict:
-  """Builds (if a source changed) and loads both kernel libraries; later
-  calls return their entry points without a lock (cuda_build holds one over
-  the build).  'shared': csrc/cholesky.cu, 'registers':
-  csrc/cholesky_regs.cu; the two take the same arguments."""
+  """Builds (if a source changed) and loads the three kernel libraries;
+  later calls return their entry points without a lock (cuda_build holds
+  one over the build).  'shared': csrc/cholesky.cu, 'registers':
+  csrc/cholesky_regs.cu, 'wide': csrc/cholesky_wide.cu; the three take
+  the same arguments."""
   if not _fns:
     fns = {'shared': cuda_build.library('cholesky').dex_cholesky,
-           'registers': cuda_build.library('cholesky_regs').dex_cholesky_regs}
+           'registers': cuda_build.library('cholesky_regs').dex_cholesky_regs,
+           'wide': cuda_build.library('cholesky_wide').dex_cholesky_wide}
     for fn in fns.values():
       fn.restype = ctypes.c_int
       fn.argtypes = [
@@ -126,19 +143,30 @@ def build() -> dict:
   return _fns
 
 
-def _design(n: int, dtype: torch.dtype) -> str:
-  """The design K1-K4 run at (n, dtype): 'registers' or 'shared'."""
-  real = dtype in (torch.float32, torch.float64)
-  return 'registers' if real and 1 <= n <= _REG_MAX_N else 'shared'
+def _design(n: int, dtype: torch.dtype, mode: int) -> str:
+  """The design kernel `mode` runs at (n, dtype): 'registers', 'wide' or
+  'shared'."""
+  if dtype in (torch.float32, torch.float64):
+    if 1 <= n <= _REG_MAX_N:
+      return 'registers'
+    if _REG_MAX_N < n <= _WIDE_MAX_N and mode in _WIDE_MODES:
+      return 'wide'
+  return 'shared'
 
 
-def _warp_smem_bytes(n: int, elem_bytes: int, design: str) -> int:
-  # Mirrors regs_warp_smem_bytes (cholesky_regs.cu) and warp_smem_elems
-  # (cholesky.cu).  Were the two to differ, the launch would fail and the
-  # wrapper raise.
+def _matrix_smem_bytes(n: int, elem_bytes: int, design: str,
+                       mode: int) -> int:
+  # Mirrors regs_warp_smem_bytes (cholesky_regs.cu), wide_group_smem_bytes
+  # (cholesky_wide.cu) and warp_smem_elems (cholesky.cu).  Were they to
+  # differ, the launch would fail and the wrapper raise.
   if design == 'registers':
     cols = 32 * (32 + 16 // elem_bytes) * elem_bytes
     return 16 + cols + ((n * n + 32) * elem_bytes + 15) // 16 * 16
+  if design == 'wide':
+    cols = 64 * (64 + 16 // elem_bytes) * elem_bytes
+    stage = (((n * n + 64) * elem_bytes + 15) // 16 * 16
+             if mode == _MODE_SOLVE_FACTOR else 0)
+    return 16 + cols + 32 * elem_bytes + stage
   return (n * (n | 1) + n) * elem_bytes
 
 
@@ -182,16 +210,19 @@ def _launch(mode: int, name: str, a: torch.Tensor, g=None,
       raise ValueError(f'{name}: shapes {tuple(a.shape)} / '
                        f'{tuple(g.shape)}')
   if design is None:
-    design = _design(n, a.dtype)
+    design = _design(n, a.dtype, mode)
   elif design == 'registers' and not 1 <= n <= _REG_MAX_N:
     raise ValueError(f'{name}: no register design at n={n}, {a.dtype}')
+  elif design == 'wide' and not (1 <= n <= _WIDE_MAX_N and
+                                 mode in _WIDE_MODES):
+    raise ValueError(f'{name}: no wide design at n={n}, mode {mode}')
   elem = a.element_size()
-  per_warp = _warp_smem_bytes(n, elem, design)
-  if per_warp > _MAX_SMEM:
-    raise ValueError(f'{name}: n={n} needs {per_warp} B of shared memory '
-                     f'per matrix (limit {_MAX_SMEM})')
+  per_matrix = _matrix_smem_bytes(n, elem, design, mode)
+  per_block = min(_PER_BLOCK[design], _MAX_SMEM // per_matrix)
+  if per_block < (_PER_BLOCK[design] if design == 'wide' else 1):
+    raise ValueError(f'{name}: n={n} needs {per_matrix} B of shared memory '
+                     f'per matrix (limit {_MAX_SMEM} a block)')
   fn = _fns.get(design) or build()[design]
-  wpb = max(1, min(_WARPS_PER_BLOCK, _MAX_SMEM // per_warp))
   # Host work per call is what the host-bound path pays: one (B, n, n)
   # batch (the path's shape) is taken as it is, with no reshape in or out,
   # and contiguous() returns a dense operand itself, uncopied.
@@ -204,7 +235,7 @@ def _launch(mode: int, name: str, a: torch.Tensor, g=None,
       fn, a.device, mode, elem, a2.data_ptr(),
       None if g2 is None else g2.data_ptr(),
       None if x is None else x.data_ptr(),
-      None if fac is None else fac.data_ptr(), a2.shape[0], n, wpb)
+      None if fac is None else fac.data_ptr(), a2.shape[0], n, per_block)
   if err != 0:
     raise RuntimeError(f'{name}: kernel launch failed (cudaError {err})')
   launches[name] += 1

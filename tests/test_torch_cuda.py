@@ -93,9 +93,9 @@ def test_kernel_batch_shapes_and_odd_batch():
   torch.testing.assert_close(x, LC.solve_plain(hc, gc), **_TOL[torch.float32])
 
 
-# The sizes that cover both designs of K1/K2 and their boundaries: a row
-# per lane in registers (n <= 32), the shared-memory design beyond, and the
-# two-row sizes (n <= 64) it takes over.
+# The sizes that cover the designs of K1/K2 and their boundaries: a row
+# per lane in registers (n <= 32), a row per thread over two warps (K1 at
+# n <= 64), the shared-memory design beyond (K1) and above 32 (K2).
 _DESIGN_NS = [1, 17, 30, 31, 32, 33, 62, 64, 80]
 
 
@@ -166,8 +166,13 @@ def test_design_picks_the_kernel_that_runs(n, dtype):
   h, g = _spd(13, 8, n)
   hc = torch.as_tensor(h, dtype=dtype, device='cuda')
   gc = torch.as_tensor(g, dtype=dtype, device='cuda')
-  want = LC._design(n, dtype)
-  assert want == ('registers' if n <= 32 else 'shared')
+  want = {mode: LC._design(n, dtype, mode)
+          for mode in (LC._MODE_SOLVE_FACTOR, LC._MODE_RESOLVE,
+                       LC._MODE_SOLVE, LC._MODE_FACTOR)}
+  wide = 'wide' if n <= 64 else 'shared'
+  assert want == ({m: 'registers' for m in want} if n <= 32 else
+                  {LC._MODE_SOLVE_FACTOR: wide, LC._MODE_SOLVE: wide,
+                   LC._MODE_RESOLVE: 'shared', LC._MODE_FACTOR: 'shared'})
   # A profiling pass has come back from the card without a kernel in it
   # (chip_smoke.py's _device_profile retries too): up to three passes.
   for _ in range(3):
@@ -181,8 +186,12 @@ def test_design_picks_the_kernel_that_runs(n, dtype):
     if len(names) == 4:
       break
   assert len(names) == 4, names
-  for name in names:
-    assert ('cholesky_regs' in name) == (want == 'registers'), name
+  # Kernel names by design: cholesky_regs_*, cholesky_wide_*,
+  # cholesky_kernel<T, MODE>.
+  tag = {'registers': 'cholesky_regs', 'wide': 'cholesky_wide',
+         'shared': 'cholesky_kernel'}
+  ran = sorted(d for name in names for d, t in tag.items() if t in name)
+  assert ran == sorted(want.values()), names
 
 
 @pytest.mark.cuda
@@ -253,6 +262,120 @@ def test_k4_register_and_shared_designs_agree(dtype):
                        want_factor=True, design=d)[:, low]
          for d in ('registers', 'shared')}
   torch.testing.assert_close(fac['registers'], fac['shared'], **_TOL[dtype])
+
+
+# The wide design's sizes (K1 and K3, 32 < n <= 64) and the first beyond
+# it, at one matrix, a block that is not full, and the suite's batch.
+_WIDE_NS = [33, 48, 62, 63, 64, 65]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b', [1, 37, 4096])
+@pytest.mark.parametrize('n', _WIDE_NS)
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_k1_k3_match_plain_at_wide_sizes(dtype, n, b):
+  """K1 (x and the packed factor's lower triangle) and K3, in the design
+  `_design` picks (wide up to 64, shared at 65), against their plain
+  versions on the same card inputs."""
+  _cuda()
+  h, g = _spd(19 + n, b, n)
+  hc = torch.as_tensor(h, dtype=dtype, device='cuda')
+  gc = torch.as_tensor(g, dtype=dtype, device='cuda')
+  tol = _TOL[dtype]
+  assert LC._design(n, dtype, LC._MODE_SOLVE) == (
+      'wide' if n <= 64 else 'shared')
+  LC.reset_launches()
+  x, fac = LC.cholesky_solve_factor(hc, gc)
+  x3 = LC.cholesky_solve(hc, gc)
+  x_ref, fac_ref = LC.solve_factor_plain(hc, gc)
+  low = torch.tril(torch.ones(n, n, dtype=torch.bool, device='cuda'))
+  torch.testing.assert_close(x, x_ref, **tol)
+  torch.testing.assert_close(fac[..., low], fac_ref[..., low], **tol)
+  torch.testing.assert_close(x3, x_ref, **tol)
+  torch.cuda.synchronize()
+  assert LC.launches == {'cholesky_solve_factor': 1,
+                         'cholesky_resolve_const': 0, 'cholesky_solve': 1,
+                         'cholesky_factor': 0}
+
+
+def _cond_tol(h, x_ref, eps):
+  """100 cond eps of the solution's scale: two backward-stable Choleskys
+  may part by ~cond eps."""
+  ev = torch.linalg.eigvalsh(h.double())
+  cond = (ev[..., -1] / ev[..., 0]).max().item()
+  return 100 * cond * eps * x_ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_wide_and_shared_designs_agree(dtype):
+  """At juggle's n = 62 the wide design and the shared-memory design (the
+  in-run yardstick) give the same K1 and K3 solutions and K1 factor, within
+  100 cond eps; and K1's packed factor from the wide design, resolved by
+  the shared-design K2, gives K1's x."""
+  _cuda()
+  n = 62
+  gen = torch.Generator().manual_seed(20)
+  a = torch.randn(1024, n, n, generator=gen, dtype=torch.float64)
+  h = (a @ a.transpose(1, 2) / n + torch.eye(n, dtype=torch.float64)).to(
+      'cuda', dtype)
+  g = torch.randn(1024, n, generator=gen, dtype=torch.float64).to(
+      'cuda', dtype)
+  eps = torch.finfo(dtype).eps
+  x64 = torch.linalg.solve(h.double(), g.double())
+  tol = _cond_tol(h, x64, eps)
+  low = torch.tril(torch.ones(n, n, dtype=torch.bool, device='cuda'))
+  out = {}
+  for design in ('wide', 'shared'):
+    x1, fac = LC._launch(LC._MODE_SOLVE_FACTOR, 'cholesky_solve_factor', h,
+                         g, want_factor=True, design=design)
+    x3 = LC._launch(LC._MODE_SOLVE, 'cholesky_solve', h, g, design=design)
+    out[design] = (x1, x3, fac)
+  for got, want in zip(out['wide'][:2], out['shared'][:2]):
+    assert (got - want).abs().max().item() <= tol
+  fac_w, fac_s = out['wide'][2], out['shared'][2]
+  assert ((fac_w - fac_s)[:, low].abs().max().item()
+          <= 100 * eps * fac_s[:, low].abs().max().item() * n)
+  assert LC._design(n, dtype, LC._MODE_RESOLVE) == 'shared'
+  x2 = LC.cholesky_resolve_const(fac_w, g)
+  assert (x2 - out['wide'][0]).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_wide_design_on_a_rank_deficient_batch(dtype):
+  """K1 and K3 in the wide design at n = 62 on SPD matrices with every
+  third dof's row and column zeroed: those pivots are exact zeros, the
+  clamp gives 1e6 in kernel and plain version alike, and x and K1's factor
+  agree with the plain versions on the kept and on the zeroed dofs, each
+  part to 1e-4 of its own max-abs (chip_smoke's rank-deficient check at
+  n = 30)."""
+  _cuda()
+  n = 62
+  gen = torch.Generator().manual_seed(21)
+  a = torch.randn(256, n, n, generator=gen, dtype=torch.float64)
+  h = a @ a.transpose(1, 2) / n + torch.eye(n, dtype=torch.float64)
+  keep = torch.arange(n) % 3 != 1
+  k = keep.double()
+  h = (h * k[:, None] * k[None, :]).to('cuda', dtype)
+  g = torch.randn(256, n, generator=gen, dtype=torch.float64).to(
+      'cuda', dtype)
+  assert LC._design(n, dtype, LC._MODE_SOLVE_FACTOR) == 'wide'
+  x, fac = LC.cholesky_solve_factor(h, g)
+  x3 = LC.cholesky_solve(h, g)
+  x_p, fac_p = LC.solve_factor_plain(h, g)
+  kept = keep.to('cuda')
+  low = torch.tril(torch.ones(n, n, dtype=torch.bool, device='cuda'))
+  fac_kept = low & kept[:, None] & kept[None, :]
+  parts = {'K1 x': (x, kept, ~kept), 'K3 x': (x3, kept, ~kept),
+           'K1 factor': (fac, fac_kept, low & ~fac_kept)}
+  for what, (got, m_kept, m_zeroed) in parts.items():
+    want = fac_p if what.endswith('factor') else x_p
+    assert bool(torch.isfinite(got).all()), what
+    for part, m in (('kept', m_kept), ('zeroed', m_zeroed)):
+      err = (got[:, m] - want[:, m]).abs().max().item()
+      scale = want[:, m].abs().max().item()
+      assert err <= 1e-4 * scale, (what, part, err, scale)
 
 
 @pytest.mark.cuda
@@ -553,18 +676,18 @@ def _first_newton_hessian(fn):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('domain,variant,n,design',
-                         [('juggle', 'state_sparse', 62, 'shared'),
+                         [('juggle', 'state_sparse', 62, 'wide'),
                           ('reach', 'state_dense', 24, 'registers')])
 def test_k3_on_the_new_tasks_newton_hessians(domain, variant, n, design):
   """K3 on a step's own first Newton Hessian of the juggle (n = 62, the
-  shared design, 20 equality rows) and reach (n = 24, the register
+  wide design, 20 equality rows) and reach (n = 24, the register
   design) environments on the card, for 4 episodes (4, n, n) and for one
   without a batch axis (1, n, n), against its plain version and a float64
   solve: within 100 cond eps of the solution's scale (at least 1e-4),
   backward error under 1e-4."""
   from dexterity_tpu_torch.utils import structs
   _cuda()
-  assert LC._design(n, torch.float32) == design
+  assert LC._design(n, torch.float32, LC._MODE_SOLVE) == design
   env = manipulation.load(domain, variant)
   state, _ = env.reset(torch.Generator().manual_seed(2), (4,))
   act = torch.zeros(4, env.model.nu, device='cuda')

@@ -46,11 +46,11 @@ def _t(x):
   return torch.as_tensor(x, dtype=torch.float64)
 
 
-# The last four sit on the boundaries of the kernels' register design
-# (n <= 32, a row per lane) and of the two-row layout it leaves to the
-# shared-memory design (n <= 64).
+# The last five sit on the boundaries of the kernels' register design
+# (n <= 32, a row per lane) and of the wide design (n <= 64, a row per
+# thread over two warps), and at the juggle model's n = 62.
 _SHAPES = [((7,), 10), ((3, 5), 8), ((4,), 30), ((2,), 1), ((2,), 32),
-           ((2,), 33), ((2,), 64)]
+           ((2,), 33), ((2,), 64), ((2,), 62)]
 
 
 @pytest.mark.parametrize('batch,n', _SHAPES)
@@ -170,17 +170,29 @@ def test_float32_plain_matches_float64():
   np.testing.assert_allclose(x32, ref, rtol=1e-3, atol=1e-5)
 
 
+_K1, _K2, _K3, _K4 = (LC._MODE_SOLVE_FACTOR, LC._MODE_RESOLVE, LC._MODE_SOLVE,
+                      LC._MODE_FACTOR)
+
+
 @pytest.mark.parametrize('n,dtype,want', [
     (1, torch.float32, 'registers'), (30, torch.float32, 'registers'),
-    (32, torch.float32, 'registers'), (33, torch.float32, 'shared'),
-    (64, torch.float32, 'shared'), (80, torch.float32, 'shared'),
+    (32, torch.float32, 'registers'), (33, torch.float32, 'wide'),
+    (64, torch.float32, 'wide'), (80, torch.float32, 'shared'),
     (300, torch.float32, 'shared'), (1, torch.float64, 'registers'),
     (30, torch.float64, 'registers'), (32, torch.float64, 'registers'),
-    (33, torch.float64, 'shared'), (64, torch.float64, 'shared'),
-    (0, torch.float32, 'shared'), (30, torch.float16, 'shared')])
-def test_design_rule(n, dtype, want):
-  """K1/K2's design follows from (n, dtype) alone."""
-  assert LC._design(n, dtype) == want
+    (33, torch.float64, 'wide'), (64, torch.float64, 'wide'),
+    (0, torch.float32, 'shared'), (30, torch.float16, 'shared'),
+    (62, torch.float32, 'wide'), (62, torch.float64, 'wide'),
+    (65, torch.float32, 'shared'), (65, torch.float64, 'shared'),
+    (62, torch.float16, 'shared')])
+@pytest.mark.parametrize('mode', [_K1, _K2, _K3, _K4])
+def test_design_rule(n, dtype, want, mode):
+  """Each kernel's design follows from (n, dtype, mode) alone: the register
+  design at n <= 32, the wide design for K1 and K3 at 32 < n <= 64, the
+  shared design for K2 and K4 above 32 and for every mode above 64."""
+  if want == 'wide' and mode in (_K2, _K4):
+    want = 'shared'
+  assert LC._design(n, dtype, mode) == want
 
 
 @pytest.mark.parametrize('mode,name', [
@@ -216,30 +228,85 @@ def test_launch_checks_come_before_the_card(monkeypatch, mode, name):
 
 
 @pytest.mark.parametrize('mode,name', [
-    (LC._MODE_SOLVE, 'cholesky_solve'), (LC._MODE_FACTOR, 'cholesky_factor')])
+    (LC._MODE_SOLVE, 'cholesky_solve'), (LC._MODE_FACTOR, 'cholesky_factor'),
+    (LC._MODE_SOLVE_FACTOR, 'cholesky_solve_factor'),
+    (LC._MODE_RESOLVE, 'cholesky_resolve_const')])
 @pytest.mark.parametrize('n,dtype,want', [
     (1, torch.float32, 'registers'), (30, torch.float32, 'registers'),
-    (32, torch.float64, 'registers'), (33, torch.float32, 'shared'),
-    (62, torch.float64, 'shared')])
+    (32, torch.float64, 'registers'), (33, torch.float32, 'wide'),
+    (62, torch.float64, 'wide'), (32, torch.float32, 'registers'),
+    (33, torch.float64, 'wide'), (62, torch.float32, 'wide'),
+    (64, torch.float32, 'wide'), (64, torch.float64, 'wide'),
+    (65, torch.float32, 'shared'), (65, torch.float64, 'shared')])
 def test_launch_picks_k3_design(monkeypatch, n, dtype, want, mode, name):
-  """`_launch` sends K3 (cholesky_solve) and K4 (cholesky_factor, no rhs)
-  to the register design at n <= 32 and to the shared-memory one above,
-  as `_design` says (meta tensors, a stub C entry per design, no card)."""
+  """`_launch` sends each kernel to the design `_design` names: K1
+  (cholesky_solve_factor) and K3 (cholesky_solve) to the register design
+  at n <= 32, to the wide one at 32 < n <= 64 and to the shared-memory one
+  above; K2 (cholesky_resolve_const) and K4 (cholesky_factor, no rhs) to
+  the shared-memory one above 32 (meta tensors, a stub C entry per
+  design, no card)."""
+  if want == 'wide' and mode in (LC._MODE_RESOLVE, LC._MODE_FACTOR):
+    want = 'shared'
   called = []
-  fns = {d: (lambda *args, d=d: called.append((d, args[0])) or 0)
-         for d in ('registers', 'shared')}
+  fns = {d: (lambda *args, d=d: called.append((d, args[0], args[-1])) or 0)
+         for d in ('registers', 'wide', 'shared')}
   monkeypatch.setattr(LC, '_fns', fns)
   monkeypatch.setattr(LC.cuda_build, 'launch',
                       lambda fn, dev, *args: fn(*args))
   monkeypatch.setitem(LC.launches, name, 0)
   h = torch.empty(4, n, n, dtype=dtype, device='meta')
+  g = torch.empty(4, n, dtype=dtype, device='meta')
   if mode == LC._MODE_FACTOR:
     out = LC._launch(mode, name, h, want_factor=True)
     assert out.shape == (4, n, n)
+  elif mode == LC._MODE_SOLVE_FACTOR:
+    x, fac = LC._launch(mode, name, h, g, want_factor=True)
+    assert x.shape == (4, n) and fac.shape == (4, n, n)
   else:
-    g = torch.empty(4, n, dtype=dtype, device='meta')
     out = LC._launch(mode, name, h, g)
     assert out.shape == (4, n)
-  assert LC._design(n, dtype) == want
-  assert called == [(want, mode)]
+  assert LC._design(n, dtype, mode) == want
+  # The matrices per block the design takes, as many as fit.
+  per_matrix = LC._matrix_smem_bytes(n, h.element_size(), want, mode)
+  per_block = min(LC._PER_BLOCK[want], LC._MAX_SMEM // per_matrix)
+  assert called == [(want, mode, per_block)]
   assert LC.launches[name] == 1
+
+
+@pytest.mark.parametrize('mode,name', [
+    (LC._MODE_SOLVE, 'cholesky_solve'),
+    (LC._MODE_SOLVE_FACTOR, 'cholesky_solve_factor')])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_wide_design_checks_its_shared_memory_first(monkeypatch, mode, name,
+                                                    dtype):
+  """The wide design's shared memory per matrix mirrors
+  wide_group_smem_bytes (cholesky_wide.cu): the column slots, x of the
+  upper warp and, for K1 alone, the stage.  A block takes exactly two
+  matrices (kWideGroups); were two over the 227 KB a block may use,
+  `_launch` raises before any build or card call (meta tensors; the limit
+  lowered to just under two matrices), and it refuses the wide design
+  where it has no kernel (n > 64, K2, K4)."""
+  n, elem = 62, torch.empty((), dtype=dtype).element_size()
+  cols = 64 * (64 + 16 // elem) * elem
+  stage = ((62 * 62 + 64) * elem + 15) // 16 * 16
+  want = 16 + cols + 32 * elem + (stage if mode == LC._MODE_SOLVE_FACTOR
+                                  else 0)
+  assert LC._matrix_smem_bytes(n, elem, 'wide', mode) == want
+  assert want % 16 == 0
+
+  def no_build(*_):
+    raise AssertionError('the checks should have raised before a build')
+  monkeypatch.setattr(LC.cuda_build, 'build_all', no_build)
+  monkeypatch.setattr(LC, '_fns', {})
+  assert LC._PER_BLOCK['wide'] == 2
+  monkeypatch.setattr(LC, '_MAX_SMEM', 2 * want - 1)
+  h = torch.empty(4, n, n, dtype=dtype, device='meta')
+  g = torch.empty(4, n, dtype=dtype, device='meta')
+  with pytest.raises(ValueError, match='shared memory'):
+    LC._launch(mode, name, h, g, want_factor=mode == LC._MODE_SOLVE_FACTOR)
+  with pytest.raises(ValueError, match='no wide design'):
+    LC._launch(mode, name, torch.empty(1, 65, 65, dtype=dtype, device='meta'),
+               torch.empty(1, 65, dtype=dtype, device='meta'), design='wide')
+  with pytest.raises(ValueError, match='no wide design'):
+    LC._launch(LC._MODE_RESOLVE, 'cholesky_resolve_const', h, g,
+               design='wide')
