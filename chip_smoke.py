@@ -11,7 +11,7 @@ non-zero otherwise, and on any failed check.  Phases, one JSON line each:
   0. probe: torch/CUDA versions, the card, the kernel build (one nvcc per
      csrc/*.cu source, all started together, sm_90a), and the registers
      and spills of the register-design kernels, K1-K4 in both types, and
-     of the wide-design kernels, K1 and K3 in both types (none may spill),
+     of the wide-design kernels, K1-K4 in both types (none may spill),
      and of the tree-sweep kernels.
   1. rollouts: the ShadowHand reorient planning model (4 Newton iterations,
      6 line-search steps, refactor every 2, 3 substeps, contact budget
@@ -73,10 +73,12 @@ non-zero otherwise, and on any failed check.  Phases, one JSON line each:
      profiled kernel names) and time the shared-memory design at the same
      inputs, in turns with it (`previous_design_ms`); K3 also at the
      environment step's shape (`env_shape`).
-  7. juggle size: K1 (the wide design) and K2 (the shared-memory design)
-     at n = 62, checked against their plain versions and timed beside
-     their bounds; K1 also in turns with the shared design, beside its
-     plain version and the library call.
+  7. juggle size: K1, K2 and K4 (the wide design) at (1024, 62, 62) on
+     seeded SPD matrices: a counted run of the cholesky_factor /
+     cholesky_resolve entry points (K4 + K2; their rows join the kernels
+     line), each kernel checked against its plain version and timed in
+     turns with the shared design, beside its bound, its plain version
+     and the library call.
   8. closed_loop: scripts/eval_closed_loop_batch.py's configuration (256
      samples, 2 iterations, horizon 10, 4 knots, the task's 5 substeps,
      refactor every 4, its keep-in-hand shaping) on 4 goals from reset
@@ -118,7 +120,10 @@ non-zero otherwise, and on any failed check.  Phases, one JSON line each:
      and (4096, 62, 62) (wide design) and reach's at (4096, 24, 24)
      (register design), each held in phase 9 or 11: device time in turns
      with the shared design (`previous_design_ms`), bound, plain version,
-     library call, per-call time; these rows join the kernels line.
+     library call, per-call time; these rows join the kernels line.  On
+     the same juggle Hessians the K4 + K2 pair and K2 on K1's factor
+     (wide design) are held against their plain versions and float64,
+     and K2 at (32, 62, 62) is timed in turns with the shared design.
   13. ilqr: ILQR.solve at scripts/eval_ilqr.py's configuration (H = 32,
      4 iterations, 6 line-search steps, refactor every 4, 3 substeps,
      the keep-in-hand shaping as a cost) for 8 goals from
@@ -563,12 +568,12 @@ def phase_probe(torch, pkg, smi):
   ptxas = {name: [ln.strip() for ln in log.splitlines()
                   if 'registers' in ln or 'spill' in ln][:12]
            for name, log in logs.items()}
-  # The register design's eight kernels (K1-K4 in float32 and float64) and
-  # the wide design's four (K1 and K3 in both types): none may spill.
+  # The register design's eight kernels and the wide design's eight (K1-K4
+  # in float32 and float64 each): none may spill.
   regs = _ptxas_entries(logs.get('cholesky_regs', ''), 'cholesky_regs_')
   check(len(regs) == 8, f'register-design kernels in the ptxas log: {regs}')
   wide = _ptxas_entries(logs.get('cholesky_wide', ''), 'cholesky_wide_')
-  check(len(wide) == 4, f'wide-design kernels in the ptxas log: {wide}')
+  check(len(wide) == 8, f'wide-design kernels in the ptxas log: {wide}')
   for label, v in (*regs.items(), *wide.items()):
     check(v.get('spill_stores') == 0 and v.get('spill_loads') == 0,
           f'{label} spills: {v}')
@@ -584,11 +589,10 @@ def phase_probe(torch, pkg, smi):
         'tree_sweep_ptxas': tree})
 
 
-# The register designs' solve_factor kernels by their template flags:
-# (kEmitFactor, kSolve) in cholesky_regs.cu, (kEmitFactor,) in
-# cholesky_wide.cu.
+# The register designs' solve_factor kernels by their template flags
+# (kEmitFactor, kSolve), in cholesky_regs.cu and cholesky_wide.cu alike.
 _REG_KINDS = {('1', '1'): 'solve_factor', ('0', '1'): 'solve',
-              ('1', '0'): 'factor', ('1',): 'solve_factor', ('0',): 'solve'}
+              ('1', '0'): 'factor'}
 
 
 def _ptxas_entries(log, prefix):
@@ -3575,11 +3579,14 @@ def _rank_deficient_checks(torch, lc, n, dev, gen):
 
 
 def phase_juggle_size(torch, pkg, dev):
-  """K1 and K2 at juggle's nv = 62 (no port path reaches them yet), on
-  seeded SPD matrices: agreement with the plain versions, the design that
-  ran, device time and _timing_row's fields.  K1 (the wide design) is
-  timed in turns with the shared design (_design_turns); K2 runs the
-  shared design."""
+  """K1, K2 and K4 at juggle's nv = 62 on seeded SPD matrices (no path of
+  the port reaches them at this size: a refactoring Newton solve on the
+  juggle model would run K1 and K2): a counted run of the cholesky_factor
+  / cholesky_resolve entry points (K4 + K2, as phase_factor_entry's at the
+  planner's n), then for each kernel its agreement with its plain version,
+  the design that ran and its device time in turns with the shared design
+  (_design_turns), and _timing_row's fields.  Returns the rows and the
+  entry points' launches."""
   lc = pkg['linalg_cuda']
   n = JUGGLE_NV
   gen = torch.Generator().manual_seed(SEED + 5)
@@ -3589,45 +3596,76 @@ def phase_juggle_size(torch, pkg, dev):
   g = torch.randn(B_PLAN, n, generator=gen, dtype=torch.float64).to(
       dev).float()
   fac = lc.factor_plain(h)
+  lc.cholesky_resolve(lc.cholesky_factor(h), g)       # warm-up
+  torch.cuda.synchronize()
+  reset_counts(pkg)
+  lc.cholesky_resolve(lc.cholesky_factor(h), g)
+  torch.cuda.synchronize()
+  launches = read_counts(pkg)
+  check(launches['cholesky_factor'] == 1 and
+        launches['cholesky_resolve_const'] == 1 and
+        sum(launches.values()) == 2, f'n={n} factor entry {launches}')
+  low = torch.tril(torch.ones(n, n, dtype=torch.bool, device=dev))
 
   def held(name, fn, plain):
-    want = plain()
-    err = (fn() - want).abs().max().item()
+    # A packed factor is held on its lower triangle: its upper is
+    # unspecified.
+    got, want = fn(), plain()
+    if name == 'cholesky_factor':
+      got, want = got[..., low], want[..., low]
+    err = (got - want).abs().max().item()
     scale = want.abs().max().item()
     check(err <= 1e-4 * scale, f'{name} at n={n}: {err} > 1e-4 * {scale}')
     return {'max_abs_err': err, 'scale': scale}
 
-  k1 = lambda: lc.cholesky_solve_factor(h, g)[0]
-  k1_plain = lambda: lc.solve_factor_plain(h, g)[0]
-  k1_ms, k1_row = _design_turns(
-      torch, lc, 'cholesky_solve_factor', lc._MODE_SOLVE_FACTOR, n, k1,
-      lambda: lc._launch(lc._MODE_SOLVE_FACTOR, 'cholesky_solve_factor', h,
-                         g, want_factor=True, design='shared'))
   g3 = g[..., None]
-  k2 = lambda: lc.cholesky_resolve_const(fac, g)
-  k2_plain = lambda: lc.resolve_plain(fac, g)
-  k2_ms, names = _device_profile(torch, k2, 100, (lc.launches,))
-  ran = _ran_design(names)
-  check(ran == lc._design(n, h.dtype, lc._MODE_RESOLVE) == 'shared',
-        f'cholesky_resolve_const at n={n} ran {ran}')
   # The library's resolve takes an L with the diagonal in place.
   ll = torch.tril(fac, -1) + torch.diag_embed(
       1 / torch.diagonal(fac, dim1=-2, dim2=-1))
-  out = {
-      'cholesky_solve_factor': {
-          **k1_row, 'ms': k1_ms, **held('cholesky_solve_factor', k1,
-                                        k1_plain),
-          **_timing_row(torch, k1, k1_plain, lambda: torch.cholesky_solve(
-              g3, torch.linalg.cholesky_ex(h)[0]), B_PLAN, n,
-                        'solve_factor')},
-      'cholesky_resolve_const': {
-          'design': ran, 'ms': k2_ms, **held('cholesky_resolve_const', k2,
-                                             k2_plain),
-          **_timing_row(torch, k2, k2_plain,
-                        lambda: torch.cholesky_solve(g3, ll), B_PLAN, n,
-                        'resolve')}}
+  kernels = {
+      'cholesky_solve_factor': (
+          lc._MODE_SOLVE_FACTOR, lambda: lc.cholesky_solve_factor(h, g)[0],
+          lambda: lc.solve_factor_plain(h, g)[0],
+          lambda: lc._launch(lc._MODE_SOLVE_FACTOR, 'cholesky_solve_factor',
+                             h, g, want_factor=True, design='shared'),
+          lambda: torch.cholesky_solve(g3, torch.linalg.cholesky_ex(h)[0]),
+          'solve_factor'),
+      'cholesky_resolve_const': (
+          lc._MODE_RESOLVE, lambda: lc.cholesky_resolve_const(fac, g),
+          lambda: lc.resolve_plain(fac, g),
+          lambda: lc._launch(lc._MODE_RESOLVE, 'cholesky_resolve_const',
+                             fac, g, design='shared'),
+          lambda: torch.cholesky_solve(g3, ll), 'resolve'),
+      'cholesky_factor': (
+          lc._MODE_FACTOR, lambda: lc.cholesky_factor(h),
+          lambda: lc.factor_plain(h),
+          lambda: lc._launch(lc._MODE_FACTOR, 'cholesky_factor', h,
+                             want_factor=True, design='shared'),
+          lambda: torch.linalg.cholesky_ex(h), 'factor')}
+  out = {}
+  for name, (mode, fn, plain, prev, lib, kind) in kernels.items():
+    ms, row = _design_turns(torch, lc, name, mode, n, fn, prev)
+    out[name] = {**row, 'ms': ms, 'kernel_ms': ms, **held(name, fn, plain),
+                 **_timing_row(torch, fn, plain, lib, B_PLAN, n, kind)}
   emit({'phase': 'juggle_size', 'shape': [B_PLAN, n, n], 'dtype': 'float32',
-        'kernels': out})
+        'entry_launches': launches, 'kernels': out})
+  return out, launches
+
+
+def _k24_holds(torch, lc, h, g, label):
+  """The K4 + K2 pair, and K2 on K1's packed factor, against their plain
+  versions and float64 on a path's own Newton Hessians (h, g): _vs_plain's
+  holds (cond-aware tolerance, backward error under 1e-4).  Returns the
+  errors."""
+  _, fac1 = lc.cholesky_solve_factor(h, g)
+  out = {}
+  for name, kw, what in (('cholesky_factor', {}, 'k4_k2'),
+                         ('cholesky_resolve_const', {'fac': fac1},
+                          'k2_on_k1_factor')):
+    for key, v in _vs_plain(torch, lc, name, h, g, f'{label} {what}',
+                            **kw).items():
+      out[f'{what}{key}'] = v
+  return out
 
 
 def _tree_inputs(torch, data, dtype):
@@ -4167,7 +4205,8 @@ def main():
   rows['cholesky_solve']['max_abs_err'] = max(
       rows['cholesky_solve']['max_abs_err'],
       *(v for k, v in env_k3.items() if k.endswith(('_hessian', '_matrix'))))
-  phase_juggle_size(torch, pkg, main_out['model'].device)
+  juggle_rows, juggle_launches = phase_juggle_size(
+      torch, pkg, main_out['model'].device)
   phase_closed_loop(torch, pkg, CL_GOALS, CL_STEPS, SEED, smi=smi)
   task_out = {domain: phase_task(torch, pkg, domain, variant)
               for domain, variant in TASK_PHASES}
@@ -4198,8 +4237,26 @@ def main():
     h, g, launches, err = suite_k3[task]
     k3_rows.append((name, source, _k3_row(torch, lc, h, g, f'suite:{task}',
                                           launches, err)))
+  # K4 + K2 and K2 on K1's factor (the wide design) on juggle's own
+  # Newton Hessians, as K3 above; K2 on the environment's 32 also timed in
+  # turns with the shared design (its chain, not its bytes, bounds it).
+  k24_holds = {
+      'juggle_b32': _k24_holds(torch, lc, *juggle['k3_inputs'], 'juggle'),
+      'suite_juggle_b4096': _k24_holds(
+          torch, lc, *suite_k3['juggle.state_sparse'][:2], 'suite juggle')}
+  jh, jg = juggle['k3_inputs']
+  _, jfac = lc.cholesky_solve_factor(jh, jg)
+  k2_ms, k2_row = _design_turns(
+      torch, lc, 'cholesky_resolve_const', lc._MODE_RESOLVE, JUGGLE_NV,
+      lambda: lc.cholesky_resolve_const(jfac, jg),
+      lambda: lc._launch(lc._MODE_RESOLVE, 'cholesky_resolve_const', jfac,
+                         jg, design='shared'))
+  k2_bound, k2_by = _bound(jh.shape[0], JUGGLE_NV, 4, 'resolve')
   emit({'phase': 'k3_task_sizes',
-        'rows': {name: row for name, _, row in k3_rows}})
+        'rows': {name: row for name, _, row in k3_rows},
+        'k2_k4_on_juggle_hessians': k24_holds,
+        'k2_on_juggle_b32': {'shape': list(jh.shape), 'ms': k2_ms, **k2_row,
+                             'bound_ms': k2_bound, 'bound_by': k2_by}})
   ilqr_rows = _ilqr_rows(torch, lc, ilqr_out, k3_out)
   if args.profile:
     phase_profile(torch, pkg, main_out)
@@ -4217,6 +4274,14 @@ def main():
                  'source': source, 'replaces': f'{_LP}:74', **row,
                  'card': smi})
   replaces = {name: rep for name, rep, _, _ in KERNELS}
+  for name in ('cholesky_factor', 'cholesky_resolve_const'):
+    launches = juggle_launches[name]
+    check(launches > 0, f'{name} was not launched at n = {JUGGLE_NV}')
+    line.append({'name': f'{name}_n{JUGGLE_NV}_b{B_PLAN}', 'kernel': name,
+                 'route': 'cuda', 'source': _WIDE,
+                 'replaces': replaces[name],
+                 'path': 'entry:cholesky_factor', 'launches': launches,
+                 **juggle_rows[name], 'card': smi})
   for name, row in ilqr_rows:
     check(row['launches'] > 0, f'{name} was not launched on ilqr')
     line.append({'name': f'{name}_ilqr', 'kernel': name, 'route': 'cuda',

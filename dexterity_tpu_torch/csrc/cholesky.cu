@@ -13,8 +13,11 @@
 // applies one rank-1 trailing update per pivot, each a warp-wide step
 // closed by __syncwarp(); the forward and back substitutions run one pivot
 // per step across the lanes.  Several warps (independent matrices) share a
-// block.  It serves K1-K4 at sizes beyond the register design of
-// cholesky_regs.cu (n > 32).
+// block.  It serves K1-K4 at n > 64, beyond the register design of
+// cholesky_regs.cu (n <= 32) and the wide design of cholesky_wide.cu
+// (n <= 64); no model of the repository reaches it.  At any n it stays the
+// yardstick a run times the other designs against, in turns
+// (linalg_cuda._launch(..., design='shared')).
 //
 // Numerics match the Pallas kernels: pivot clamp rsqrt(max(a_kk, 1e-12)),
 // the same column scaling and rank-1 update order, and the same packed

@@ -38,16 +38,21 @@ suite's (4096, 62, 62) K3's FMAs set the bound instead.  Three designs
                unrolled with no branch; the main path (n = 30, float32),
                the environment step (n = 30) and `cholesky_factor` on their
                Hessians run it.
-  'wide'       `csrc/cholesky_wide.cu`: K1 and K3 at 32 < n <= 64, two
+  'wide'       `csrc/cholesky_wide.cu`: K1-K4 at 32 < n <= 64, two
                warps per matrix, a row per thread in registers, one
-               64-thread named barrier per pivot; the juggle environment's
-               and the suite's K3 (n = 62) run it.
+               64-thread named barrier per pivot (K1, K3, K4) or two per
+               solve (K2, substitutions blocked by warp); the juggle
+               environment's and the suite's K3 (n = 62) run it, and K2
+               wherever a refactoring Newton solve meets the juggle model.
   'shared'     `csrc/cholesky.cu`: one warp per matrix, the matrix in
-               shared memory, one __syncwarp() per pivot: K2 and K4 beyond
-               n = 32, K1 and K3 beyond n = 64.
+               shared memory, one __syncwarp() per pivot: every mode
+               beyond n = 64 (no model of the repository reaches it), and
+               the in-run yardstick at any n (`_launch(...,
+               design='shared')`).
 
 `_design(n, dtype, mode)` picks every kernel's design from the shape, type
-and mode alone; no switch overrides it on the public wrappers.
+and mode alone (every design has every mode, so today n and the type
+decide); no switch overrides it on the public wrappers.
 `_launch(..., design=...)` runs any design at the inputs it takes, so a
 card run can time the shared design beside the one `_design` picks.
 
@@ -95,10 +100,9 @@ _MODE_FACTOR = 3
 # Largest n of the register design: one row per lane.  (Its code with two
 # rows per lane, n <= 64, spills K1 in both types; see cholesky_regs.cu.)
 _REG_MAX_N = 32
-# Largest n of the wide design (a row per thread over two warps), and the
-# modes it has: K3 and K1.  The shared design has every mode and n.
+# Largest n of the wide design (a row per thread over two warps).  Every
+# design has every mode; the shared design has every n.
 _WIDE_MAX_N = 64
-_WIDE_MODES = (_MODE_SOLVE, _MODE_SOLVE_FACTOR)
 
 # Shared memory one block may use on Hopper (227 KB).
 _MAX_SMEM = 232448
@@ -149,7 +153,7 @@ def _design(n: int, dtype: torch.dtype, mode: int) -> str:
   if dtype in (torch.float32, torch.float64):
     if 1 <= n <= _REG_MAX_N:
       return 'registers'
-    if _REG_MAX_N < n <= _WIDE_MAX_N and mode in _WIDE_MODES:
+    if _REG_MAX_N < n <= _WIDE_MAX_N:
       return 'wide'
   return 'shared'
 
@@ -163,9 +167,10 @@ def _matrix_smem_bytes(n: int, elem_bytes: int, design: str,
     cols = 32 * (32 + 16 // elem_bytes) * elem_bytes
     return 16 + cols + ((n * n + 32) * elem_bytes + 15) // 16 * 16
   if design == 'wide':
-    cols = 64 * (64 + 16 // elem_bytes) * elem_bytes
-    stage = (((n * n + 64) * elem_bytes + 15) // 16 * 16
-             if mode == _MODE_SOLVE_FACTOR else 0)
+    cols = (0 if mode == _MODE_RESOLVE
+            else 64 * (64 + 16 // elem_bytes) * elem_bytes)
+    stage = (0 if mode == _MODE_SOLVE
+             else ((n * n + 64) * elem_bytes + 15) // 16 * 16)
     return 16 + cols + 32 * elem_bytes + stage
   return (n * (n | 1) + n) * elem_bytes
 
@@ -213,9 +218,8 @@ def _launch(mode: int, name: str, a: torch.Tensor, g=None,
     design = _design(n, a.dtype, mode)
   elif design == 'registers' and not 1 <= n <= _REG_MAX_N:
     raise ValueError(f'{name}: no register design at n={n}, {a.dtype}')
-  elif design == 'wide' and not (1 <= n <= _WIDE_MAX_N and
-                                 mode in _WIDE_MODES):
-    raise ValueError(f'{name}: no wide design at n={n}, mode {mode}')
+  elif design == 'wide' and not 1 <= n <= _WIDE_MAX_N:
+    raise ValueError(f'{name}: no wide design at n={n}')
   elem = a.element_size()
   per_matrix = _matrix_smem_bytes(n, elem, design, mode)
   per_block = min(_PER_BLOCK[design], _MAX_SMEM // per_matrix)

@@ -94,8 +94,8 @@ def test_kernel_batch_shapes_and_odd_batch():
 
 
 # The sizes that cover the designs of K1/K2 and their boundaries: a row
-# per lane in registers (n <= 32), a row per thread over two warps (K1 at
-# n <= 64), the shared-memory design beyond (K1) and above 32 (K2).
+# per lane in registers (n <= 32), a row per thread over two warps
+# (n <= 64), the shared-memory design beyond.
 _DESIGN_NS = [1, 17, 30, 31, 32, 33, 62, 64, 80]
 
 
@@ -169,10 +169,8 @@ def test_design_picks_the_kernel_that_runs(n, dtype):
   want = {mode: LC._design(n, dtype, mode)
           for mode in (LC._MODE_SOLVE_FACTOR, LC._MODE_RESOLVE,
                        LC._MODE_SOLVE, LC._MODE_FACTOR)}
-  wide = 'wide' if n <= 64 else 'shared'
-  assert want == ({m: 'registers' for m in want} if n <= 32 else
-                  {LC._MODE_SOLVE_FACTOR: wide, LC._MODE_SOLVE: wide,
-                   LC._MODE_RESOLVE: 'shared', LC._MODE_FACTOR: 'shared'})
+  design = ('registers' if n <= 32 else 'wide' if n <= 64 else 'shared')
+  assert want == {m: design for m in want}
   # A profiling pass has come back from the card without a kernel in it
   # (chip_smoke.py's _device_profile retries too): up to three passes.
   for _ in range(3):
@@ -264,8 +262,8 @@ def test_k4_register_and_shared_designs_agree(dtype):
   torch.testing.assert_close(fac['registers'], fac['shared'], **_TOL[dtype])
 
 
-# The wide design's sizes (K1 and K3, 32 < n <= 64) and the first beyond
-# it, at one matrix, a block that is not full, and the suite's batch.
+# The wide design's sizes (32 < n <= 64) and the first beyond it, at one
+# matrix, a block that is not full, and the suite's batch.
 _WIDE_NS = [33, 48, 62, 63, 64, 65]
 
 
@@ -298,6 +296,39 @@ def test_k1_k3_match_plain_at_wide_sizes(dtype, n, b):
                          'cholesky_factor': 0}
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize('b', [1, 37, 4096])
+@pytest.mark.parametrize('n', _WIDE_NS)
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_k2_k4_match_plain_at_wide_sizes(dtype, n, b):
+  """K4 (the packed factor's lower triangle) and K2 (on the plain
+  factor, and the K4 + K2 pair), in the design `_design` picks (wide up to
+  64, shared at 65), against their plain versions on the same card
+  inputs; K2 reads only the packed layout."""
+  _cuda()
+  h, g = _spd(29 + n, b, n)
+  hc = torch.as_tensor(h, dtype=dtype, device='cuda')
+  gc = torch.as_tensor(g, dtype=dtype, device='cuda')
+  tol = _TOL[dtype]
+  for mode in (LC._MODE_RESOLVE, LC._MODE_FACTOR):
+    assert LC._design(n, dtype, mode) == ('wide' if n <= 64 else 'shared')
+  LC.reset_launches()
+  fac = LC.cholesky_factor(hc)
+  fac_ref = LC.factor_plain(hc)
+  x2 = LC.cholesky_resolve_const(fac_ref, gc)
+  x42 = LC.cholesky_resolve(fac, gc)
+  low = torch.tril(torch.ones(n, n, dtype=torch.bool, device='cuda'))
+  torch.testing.assert_close(fac[..., low], fac_ref[..., low], **tol)
+  torch.testing.assert_close(x2, LC.resolve_plain(fac_ref, gc), **tol)
+  torch.testing.assert_close(x42, LC.solve_plain(hc, gc), **tol)
+  upper = torch.triu(torch.full_like(fac_ref, 1e6), 1)
+  assert torch.equal(LC.cholesky_resolve_const(fac_ref + upper, gc), x2)
+  torch.cuda.synchronize()
+  assert LC.launches == {'cholesky_solve_factor': 0,
+                         'cholesky_resolve_const': 3, 'cholesky_solve': 0,
+                         'cholesky_factor': 1}
+
+
 def _cond_tol(h, x_ref, eps):
   """100 cond eps of the solution's scale: two backward-stable Choleskys
   may part by ~cond eps."""
@@ -310,9 +341,9 @@ def _cond_tol(h, x_ref, eps):
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 def test_wide_and_shared_designs_agree(dtype):
   """At juggle's n = 62 the wide design and the shared-memory design (the
-  in-run yardstick) give the same K1 and K3 solutions and K1 factor, within
-  100 cond eps; and K1's packed factor from the wide design, resolved by
-  the shared-design K2, gives K1's x."""
+  in-run yardstick) give the same K1, K2 and K3 solutions and K1 and K4
+  factors, within 100 cond eps; and every packed factor, K1's or K4's of
+  either design, resolved by either design's K2, gives K1's x."""
   _cuda()
   n = 62
   gen = torch.Generator().manual_seed(20)
@@ -325,31 +356,40 @@ def test_wide_and_shared_designs_agree(dtype):
   x64 = torch.linalg.solve(h.double(), g.double())
   tol = _cond_tol(h, x64, eps)
   low = torch.tril(torch.ones(n, n, dtype=torch.bool, device='cuda'))
-  out = {}
+  out, facs = {}, {}
   for design in ('wide', 'shared'):
     x1, fac = LC._launch(LC._MODE_SOLVE_FACTOR, 'cholesky_solve_factor', h,
                          g, want_factor=True, design=design)
     x3 = LC._launch(LC._MODE_SOLVE, 'cholesky_solve', h, g, design=design)
-    out[design] = (x1, x3, fac)
-  for got, want in zip(out['wide'][:2], out['shared'][:2]):
+    fac4 = LC._launch(LC._MODE_FACTOR, 'cholesky_factor', h,
+                      want_factor=True, design=design)
+    x2 = LC._launch(LC._MODE_RESOLVE, 'cholesky_resolve_const', fac, g,
+                    design=design)
+    out[design] = (x1, x3, x2)
+    facs[('K1', design)], facs[('K4', design)] = fac, fac4
+  for got, want in zip(out['wide'], out['shared']):
     assert (got - want).abs().max().item() <= tol
-  fac_w, fac_s = out['wide'][2], out['shared'][2]
-  assert ((fac_w - fac_s)[:, low].abs().max().item()
-          <= 100 * eps * fac_s[:, low].abs().max().item() * n)
-  assert LC._design(n, dtype, LC._MODE_RESOLVE) == 'shared'
-  x2 = LC.cholesky_resolve_const(fac_w, g)
-  assert (x2 - out['wide'][0]).abs().max().item() <= tol
+  fac_s = facs[('K1', 'shared')]
+  for fac in facs.values():
+    assert ((fac - fac_s)[:, low].abs().max().item()
+            <= 100 * eps * fac_s[:, low].abs().max().item() * n)
+  for design in ('wide', 'shared'):
+    assert LC._design(n, dtype, LC._MODE_RESOLVE) == 'wide'
+    for fac in facs.values():
+      x2 = LC._launch(LC._MODE_RESOLVE, 'cholesky_resolve_const', fac, g,
+                      design=design)
+      assert (x2 - out['wide'][0]).abs().max().item() <= tol
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 def test_wide_design_on_a_rank_deficient_batch(dtype):
-  """K1 and K3 in the wide design at n = 62 on SPD matrices with every
-  third dof's row and column zeroed: those pivots are exact zeros, the
-  clamp gives 1e6 in kernel and plain version alike, and x and K1's factor
-  agree with the plain versions on the kept and on the zeroed dofs, each
-  part to 1e-4 of its own max-abs (chip_smoke's rank-deficient check at
-  n = 30)."""
+  """K1, K3, K4 and the K4 + K2 pair in the wide design at n = 62 on SPD
+  matrices with every third dof's row and column zeroed: those pivots are
+  exact zeros, the clamp gives 1e6 in kernel and plain version alike, and
+  x and K1's and K4's factors agree with the plain versions on the kept
+  and on the zeroed dofs, each part to 1e-4 of its own max-abs
+  (chip_smoke's rank-deficient check at n = 30)."""
   _cuda()
   n = 62
   gen = torch.Generator().manual_seed(21)
@@ -360,15 +400,21 @@ def test_wide_design_on_a_rank_deficient_batch(dtype):
   h = (h * k[:, None] * k[None, :]).to('cuda', dtype)
   g = torch.randn(256, n, generator=gen, dtype=torch.float64).to(
       'cuda', dtype)
-  assert LC._design(n, dtype, LC._MODE_SOLVE_FACTOR) == 'wide'
+  for mode in (LC._MODE_SOLVE_FACTOR, LC._MODE_RESOLVE, LC._MODE_SOLVE,
+               LC._MODE_FACTOR):
+    assert LC._design(n, dtype, mode) == 'wide'
   x, fac = LC.cholesky_solve_factor(h, g)
   x3 = LC.cholesky_solve(h, g)
+  fac4 = LC.cholesky_factor(h)
+  x42 = LC.cholesky_resolve(fac4, g)
   x_p, fac_p = LC.solve_factor_plain(h, g)
   kept = keep.to('cuda')
   low = torch.tril(torch.ones(n, n, dtype=torch.bool, device='cuda'))
   fac_kept = low & kept[:, None] & kept[None, :]
   parts = {'K1 x': (x, kept, ~kept), 'K3 x': (x3, kept, ~kept),
-           'K1 factor': (fac, fac_kept, low & ~fac_kept)}
+           'K4 + K2 x': (x42, kept, ~kept),
+           'K1 factor': (fac, fac_kept, low & ~fac_kept),
+           'K4 factor': (fac4, fac_kept, low & ~fac_kept)}
   for what, (got, m_kept, m_zeroed) in parts.items():
     want = fac_p if what.endswith('factor') else x_p
     assert bool(torch.isfinite(got).all()), what

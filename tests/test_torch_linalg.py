@@ -100,7 +100,8 @@ def test_cholesky_resolve_const_matches_jax(batch, n):
   np.testing.assert_array_equal(got2, got)
 
 
-@pytest.mark.parametrize('batch,n', [((2, 6), 9), ((5,), 8), ((4,), 30)])
+@pytest.mark.parametrize('batch,n', [((2, 6), 9), ((5,), 8), ((4,), 30),
+                                     ((2,), 62)])
 def test_cholesky_factor_resolve_pair_matches_jax(batch, n):
   """K4 + K2: the pair's solution against JAX's cholesky_factor /
   cholesky_resolve under nested vmaps (tests/test_linalg_pallas.py).
@@ -187,11 +188,9 @@ _K1, _K2, _K3, _K4 = (LC._MODE_SOLVE_FACTOR, LC._MODE_RESOLVE, LC._MODE_SOLVE,
     (62, torch.float16, 'shared')])
 @pytest.mark.parametrize('mode', [_K1, _K2, _K3, _K4])
 def test_design_rule(n, dtype, want, mode):
-  """Each kernel's design follows from (n, dtype, mode) alone: the register
-  design at n <= 32, the wide design for K1 and K3 at 32 < n <= 64, the
-  shared design for K2 and K4 above 32 and for every mode above 64."""
-  if want == 'wide' and mode in (_K2, _K4):
-    want = 'shared'
+  """Each kernel's design follows from (n, dtype, mode) alone: for every
+  mode the register design at n <= 32, the wide design at 32 < n <= 64
+  and the shared design above 64."""
   assert LC._design(n, dtype, mode) == want
 
 
@@ -239,14 +238,11 @@ def test_launch_checks_come_before_the_card(monkeypatch, mode, name):
     (64, torch.float32, 'wide'), (64, torch.float64, 'wide'),
     (65, torch.float32, 'shared'), (65, torch.float64, 'shared')])
 def test_launch_picks_k3_design(monkeypatch, n, dtype, want, mode, name):
-  """`_launch` sends each kernel to the design `_design` names: K1
-  (cholesky_solve_factor) and K3 (cholesky_solve) to the register design
-  at n <= 32, to the wide one at 32 < n <= 64 and to the shared-memory one
-  above; K2 (cholesky_resolve_const) and K4 (cholesky_factor, no rhs) to
-  the shared-memory one above 32 (meta tensors, a stub C entry per
-  design, no card)."""
-  if want == 'wide' and mode in (LC._MODE_RESOLVE, LC._MODE_FACTOR):
-    want = 'shared'
+  """`_launch` sends each kernel, K1 (cholesky_solve_factor), K2
+  (cholesky_resolve_const), K3 (cholesky_solve) and K4 (cholesky_factor,
+  no rhs), to the design `_design` names: the register design at n <= 32,
+  the wide one at 32 < n <= 64 and the shared-memory one above (meta
+  tensors, a stub C entry per design, no card)."""
   called = []
   fns = {d: (lambda *args, d=d: called.append((d, args[0], args[-1])) or 0)
          for d in ('registers', 'wide', 'shared')}
@@ -275,22 +271,24 @@ def test_launch_picks_k3_design(monkeypatch, n, dtype, want, mode, name):
 
 @pytest.mark.parametrize('mode,name', [
     (LC._MODE_SOLVE, 'cholesky_solve'),
-    (LC._MODE_SOLVE_FACTOR, 'cholesky_solve_factor')])
+    (LC._MODE_SOLVE_FACTOR, 'cholesky_solve_factor'),
+    (LC._MODE_RESOLVE, 'cholesky_resolve_const'),
+    (LC._MODE_FACTOR, 'cholesky_factor')])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 def test_wide_design_checks_its_shared_memory_first(monkeypatch, mode, name,
                                                     dtype):
   """The wide design's shared memory per matrix mirrors
-  wide_group_smem_bytes (cholesky_wide.cu): the column slots, x of the
-  upper warp and, for K1 alone, the stage.  A block takes exactly two
-  matrices (kWideGroups); were two over the 227 KB a block may use,
-  `_launch` raises before any build or card call (meta tensors; the limit
-  lowered to just under two matrices), and it refuses the wide design
-  where it has no kernel (n > 64, K2, K4)."""
+  wide_group_smem_bytes (cholesky_wide.cu): the mbarrier, the column
+  slots (all but K2), y or x of one warp and the stage (all but K3, whose
+  stage lies in its slots).  A block takes exactly two matrices (kWideGroups); were two
+  over the 227 KB a block may use, `_launch` raises before any build or
+  card call (meta tensors; the limit lowered to just under two matrices),
+  and it refuses the wide design where it has no kernel (n > 64)."""
   n, elem = 62, torch.empty((), dtype=dtype).element_size()
   cols = 64 * (64 + 16 // elem) * elem
   stage = ((62 * 62 + 64) * elem + 15) // 16 * 16
-  want = 16 + cols + 32 * elem + (stage if mode == LC._MODE_SOLVE_FACTOR
-                                  else 0)
+  want = (16 + (0 if mode == LC._MODE_RESOLVE else cols) + 32 * elem +
+          (0 if mode == LC._MODE_SOLVE else stage))
   assert LC._matrix_smem_bytes(n, elem, 'wide', mode) == want
   assert want % 16 == 0
 
@@ -301,12 +299,25 @@ def test_wide_design_checks_its_shared_memory_first(monkeypatch, mode, name,
   assert LC._PER_BLOCK['wide'] == 2
   monkeypatch.setattr(LC, '_MAX_SMEM', 2 * want - 1)
   h = torch.empty(4, n, n, dtype=dtype, device='meta')
-  g = torch.empty(4, n, dtype=dtype, device='meta')
+  factor = mode == LC._MODE_FACTOR
+  g = None if factor else torch.empty(4, n, dtype=dtype, device='meta')
   with pytest.raises(ValueError, match='shared memory'):
-    LC._launch(mode, name, h, g, want_factor=mode == LC._MODE_SOLVE_FACTOR)
+    LC._launch(mode, name, h, g,
+               want_factor=mode in (LC._MODE_SOLVE_FACTOR, LC._MODE_FACTOR))
   with pytest.raises(ValueError, match='no wide design'):
     LC._launch(mode, name, torch.empty(1, 65, 65, dtype=dtype, device='meta'),
+               None if factor else
                torch.empty(1, 65, dtype=dtype, device='meta'), design='wide')
-  with pytest.raises(ValueError, match='no wide design'):
-    LC._launch(LC._MODE_RESOLVE, 'cholesky_resolve_const', h, g,
-               design='wide')
+
+
+@pytest.mark.parametrize('mode', [_K1, _K2, _K3, _K4])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_wide_design_fits_two_groups_at_n64(mode, dtype):
+  """At the wide design's largest n, two matrices (kWideGroups) fit in
+  the 227 KB a block may use, for every mode and type: `_launch` takes
+  the wide design there with its two groups."""
+  elem = torch.empty((), dtype=dtype).element_size()
+  per_matrix = LC._matrix_smem_bytes(64, elem, 'wide', mode)
+  assert LC._PER_BLOCK['wide'] == 2
+  assert 2 * per_matrix <= LC._MAX_SMEM
+  assert LC._design(64, dtype, mode) == 'wide'
