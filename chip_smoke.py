@@ -75,10 +75,14 @@ non-zero otherwise, and on any failed check.  Phases, one JSON line each:
      environment step's shape (`env_shape`).
   7. juggle size: K1, K2 and K4 (the wide design) at (1024, 62, 62) on
      seeded SPD matrices: a counted run of the cholesky_factor /
-     cholesky_resolve entry points (K4 + K2; their rows join the kernels
+     cholesky_resolve, cholesky_solve_factor and cholesky_solve entry
+     points (one launch each; the timed kernels' rows join the kernels
      line), each kernel checked against its plain version and timed in
-     turns with the shared design, beside its bound, its plain version
-     and the library call.
+     turns with the shared design, beside its bound (one triangle, and
+     n^2 in `bound_square_ms`), its plain version and the library call.
+     Then `size_n80`: the same at (1024, 80, 80), the top of the JAX
+     package's Pallas range, for K1-K4, which run the shared design
+     there and are each timed alone (two complete profiler windows).
   8. closed_loop: scripts/eval_closed_loop_batch.py's configuration (256
      samples, 2 iterations, horizon 10, 4 knots, the task's 5 substeps,
      refactor every 4, its keep-in-hand shaping) on 4 goals from reset
@@ -111,7 +115,7 @@ non-zero otherwise, and on any failed check.  Phases, one JSON line each:
      steps; every episode must register a solve and see reward 0.
   11. suite: scripts/bench_suite.py, every manipulation.ALL_NAMES task
      through BatchedEnvironment.step_with_metrics under uniform random
-     actions at B = 4096: 2 warm-up and 50 timed steps (cut from the
+     actions at B = 4096: 2 warm-up and 25 timed steps (cut from the
      reference's 100 in `reduced`), env steps/s, substeps/s, episodes,
      mean return, K3 launches, the device idle share of one step, peak
      memory; K3 held against its plain version and float64 on reach's and
@@ -267,6 +271,9 @@ PC_SOLVES = 3
 # The juggle model's nv (ROADMAP §A.3), where K1 and K2 leave the register
 # design.
 JUGGLE_NV = 62
+# The top of the JAX package's Pallas range (linalg_pallas._max_pallas_n),
+# above the wide design's n <= 64: K1-K4 run the shared design there.
+N_TOP = 80
 # Environment phase: GoalEnvironment.reset of B_EPISODES episodes, then
 # ENV_STEPS control steps; the first ENV_CHECKED held against the CPU.
 B_EPISODES = 32
@@ -363,10 +370,12 @@ ORACLE_STEPS = 200
 # The suite (scripts/bench_suite.py; BASELINE.json configs[4]: 4096
 # scenarios x all tasks): SUITE_WARMUP steps, then SUITE_STEPS timed steps,
 # cut from the reference's 100 (which took 166 s of the script's wall for
-# all four on the card) to keep the script inside 900 s.
+# all four on the card; 50 took 76 s).  25 keeps the script inside its
+# 1200 s on a host ~1.45x slower in every host-bound phase, where 50 took
+# 1168 s.
 B_SUITE = 4096
 SUITE_WARMUP = 2
-SUITE_STEPS = 50
+SUITE_STEPS = 25
 SUITE_REFERENCE_STEPS = 100
 
 # The ik phase: examples/inverse_kinematics.py's feasible targets (the
@@ -3300,13 +3309,15 @@ def _ran_design(names):
   return 'shared' if any('cholesky_kernel' in k for k in names) else None
 
 
-def _bound(b, n, elem, kind):
+def _bound(b, n, elem, kind, square=False):
   """Least time (ms) for the work: bytes (each input read once, each
   output written once) over HBM rate vs FMAs over the FP32/FP64 rate.
   A matrix moves one triangle with its diagonal: an SPD matrix is
   determined by it, and a packed factor holds nothing else (PR 8's
-  yardstick counted n^2, which K2 beats: PERF.md §6)."""
-  mat, vec = b * n * (n + 1) // 2 * elem, b * n * elem
+  yardstick counted n^2, which K2 beats: PERF.md §6; `square` counts
+  that way, for a row to show beside the triangle's)."""
+  mat = b * (n * n if square else n * (n + 1) // 2) * elem
+  vec = b * n * elem
   if kind == 'solve_factor':
     nbytes = mat + vec + vec + mat
     fmas = b * (n ** 3 / 3 + n * n)
@@ -3578,33 +3589,44 @@ def _rank_deficient_checks(torch, lc, n, dev, gen):
   return errs
 
 
-def phase_juggle_size(torch, pkg, dev):
-  """K1, K2 and K4 at juggle's nv = 62 on seeded SPD matrices (no path of
-  the port reaches them at this size: a refactoring Newton solve on the
-  juggle model would run K1 and K2): a counted run of the cholesky_factor
-  / cholesky_resolve entry points (K4 + K2, as phase_factor_entry's at the
-  planner's n), then for each kernel its agreement with its plain version,
-  the design that ran and its device time in turns with the shared design
-  (_design_turns), and _timing_row's fields.  Returns the rows and the
-  entry points' launches."""
+def phase_juggle_size(torch, pkg, dev, n=JUGGLE_NV):
+  """K1-K4 at (B_PLAN, n, n) float32 on seeded SPD matrices, which no path
+  of the port gives them (a refactoring Newton solve on the juggle model
+  would run K1 and K2 at nv = 62): a counted run of the cholesky_factor /
+  cholesky_resolve, cholesky_solve_factor and cholesky_solve entry points
+  (one launch each), then for each kernel timed here its agreement with
+  its plain version, the design that ran, its device time and
+  _timing_row's fields (with the bound counting n^2 beside it).  At
+  juggle's nv = 62 (the wide design) K1, K2 and K4 are timed in turns
+  with the shared design (_design_turns; K3 is timed on juggle's own
+  Hessians, `k3_task_sizes`).  Above the wide design's range (N_TOP = 80,
+  the top of the JAX package's Pallas range) all four run the shared
+  design, which is the previous design there, so each is timed alone
+  (_shared_alone).  Returns the rows and the entry points' launches."""
+  t_phase = time.perf_counter()
   lc = pkg['linalg_cuda']
-  n = JUGGLE_NV
-  gen = torch.Generator().manual_seed(SEED + 5)
+  wide = n <= lc._WIDE_MAX_N
+  gen = torch.Generator().manual_seed(SEED + (5 if wide else 6))
   a = torch.randn(B_PLAN, n, n, generator=gen, dtype=torch.float64)
   h = ((a @ a.transpose(1, 2)) / n + torch.eye(n, dtype=torch.float64)).to(
       dev).float()
   g = torch.randn(B_PLAN, n, generator=gen, dtype=torch.float64).to(
       dev).float()
   fac = lc.factor_plain(h)
-  lc.cholesky_resolve(lc.cholesky_factor(h), g)       # warm-up
+
+  def entries():
+    lc.cholesky_resolve(lc.cholesky_factor(h), g)
+    lc.cholesky_solve_factor(h, g)
+    lc.cholesky_solve(h, g)
+
+  entries()                                           # warm-up
   torch.cuda.synchronize()
   reset_counts(pkg)
-  lc.cholesky_resolve(lc.cholesky_factor(h), g)
+  entries()
   torch.cuda.synchronize()
   launches = read_counts(pkg)
-  check(launches['cholesky_factor'] == 1 and
-        launches['cholesky_resolve_const'] == 1 and
-        sum(launches.values()) == 2, f'n={n} factor entry {launches}')
+  check(all(launches[k] == 1 for k in lc.launches) and
+        sum(launches.values()) == 4, f'n={n} entry points {launches}')
   low = torch.tril(torch.ones(n, n, dtype=torch.bool, device=dev))
 
   def held(name, fn, plain):
@@ -3642,14 +3664,42 @@ def phase_juggle_size(torch, pkg, dev):
           lambda: lc._launch(lc._MODE_FACTOR, 'cholesky_factor', h,
                              want_factor=True, design='shared'),
           lambda: torch.linalg.cholesky_ex(h), 'factor')}
+  if not wide:
+    kernels['cholesky_solve'] = (
+        lc._MODE_SOLVE, lambda: lc.cholesky_solve(h, g),
+        lambda: lc.solve_plain(h, g), None,
+        lambda: torch.cholesky_solve(g3, torch.linalg.cholesky_ex(h)[0]),
+        'solve')
   out = {}
   for name, (mode, fn, plain, prev, lib, kind) in kernels.items():
-    ms, row = _design_turns(torch, lc, name, mode, n, fn, prev)
+    if wide:
+      ms, row = _design_turns(torch, lc, name, mode, n, fn, prev)
+    else:
+      ms, row = _shared_alone(torch, lc, name, mode, n, fn)
     out[name] = {**row, 'ms': ms, 'kernel_ms': ms, **held(name, fn, plain),
-                 **_timing_row(torch, fn, plain, lib, B_PLAN, n, kind)}
-  emit({'phase': 'juggle_size', 'shape': [B_PLAN, n, n], 'dtype': 'float32',
-        'entry_launches': launches, 'kernels': out})
+                 **_timing_row(torch, fn, plain, lib, B_PLAN, n, kind),
+                 'bound_square_ms': _bound(B_PLAN, n, 4, kind, True)[0]}
+  emit({'phase': 'juggle_size' if n == JUGGLE_NV else f'size_n{n}',
+        'shape': [B_PLAN, n, n], 'dtype': 'float32',
+        'entry_launches': launches, 'kernels': out,
+        'phase_s': time.perf_counter() - t_phase})
   return out, launches
+
+
+def _shared_alone(torch, lc, name, mode, n, fn):
+  """The device time of the wrapper `fn` where `_design` picks the shared
+  design: two windows of 100 calls whose 100 kernel records the
+  profiler held (checked against the launch counter), averaged.  Fails
+  unless the shared design ran.  Returns (ms, the row's design
+  fields)."""
+  windows = [_device_profile(torch, fn, 100, (lc.launches,))
+             for _ in range(2)]
+  ran = {_ran_design(names) for _, names in windows}
+  check(ran == {'shared'} == {lc._design(n, torch.float32, mode)},
+        f'{name} at n={n}: ran {ran}')
+  return (windows[0][0] + windows[1][0]) / 2, {
+      'design': 'shared', 'windows_ms': [w[0] for w in windows],
+      'profiler_records_per_window': 100}
 
 
 def _k24_holds(torch, lc, h, g, label):
@@ -4207,6 +4257,8 @@ def main():
       *(v for k, v in env_k3.items() if k.endswith(('_hessian', '_matrix'))))
   juggle_rows, juggle_launches = phase_juggle_size(
       torch, pkg, main_out['model'].device)
+  top_rows, top_launches = phase_juggle_size(
+      torch, pkg, main_out['model'].device, N_TOP)
   phase_closed_loop(torch, pkg, CL_GOALS, CL_STEPS, SEED, smi=smi)
   task_out = {domain: phase_task(torch, pkg, domain, variant)
               for domain, variant in TASK_PHASES}
@@ -4274,14 +4326,16 @@ def main():
                  'source': source, 'replaces': f'{_LP}:74', **row,
                  'card': smi})
   replaces = {name: rep for name, rep, _, _ in KERNELS}
-  for name in ('cholesky_factor', 'cholesky_resolve_const'):
-    launches = juggle_launches[name]
-    check(launches > 0, f'{name} was not launched at n = {JUGGLE_NV}')
-    line.append({'name': f'{name}_n{JUGGLE_NV}_b{B_PLAN}', 'kernel': name,
-                 'route': 'cuda', 'source': _WIDE,
-                 'replaces': replaces[name],
-                 'path': 'entry:cholesky_factor', 'launches': launches,
-                 **juggle_rows[name], 'card': smi})
+  for n, source, rows_n, launches_n in (
+      (JUGGLE_NV, _WIDE, juggle_rows, juggle_launches),
+      (N_TOP, _CHOL, top_rows, top_launches)):
+    for name, row in rows_n.items():
+      launches = launches_n[name]
+      check(launches > 0, f'{name} was not launched at n = {n}')
+      line.append({'name': f'{name}_n{n}_b{B_PLAN}', 'kernel': name,
+                   'route': 'cuda', 'source': source,
+                   'replaces': replaces[name], 'path': 'entry:linalg_cuda',
+                   'launches': launches, **row, 'card': smi})
   for name, row in ilqr_rows:
     check(row['launches'] > 0, f'{name} was not launched on ilqr')
     line.append({'name': f'{name}_ilqr', 'kernel': name, 'route': 'cuda',

@@ -14,5 +14,7 @@ fingertip inertias), which breaks positive-definiteness.
 
 import torch
 
+from dexterity_tpu_torch import exception  # noqa: F401
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

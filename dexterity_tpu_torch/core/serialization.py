@@ -1,12 +1,15 @@
-"""JSON -> ModelSpec loading (port of dexterity_tpu/core/serialization.py).
+"""ModelSpec <-> JSON serialization (port of
+dexterity_tpu/core/serialization.py).
 
 Hand models ship as JSON assets under dexterity_tpu_torch/models/assets, a
-byte-equal copy of the JAX package's assets.  Only the loading direction
-is ported.
+byte-equal copy of the JAX package's assets.  Both directions are ported:
+`save_spec` writes the bytes the JAX package's writer writes for the same
+spec, and `load_spec` reads them back.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 from typing import Any, Dict
 
@@ -15,6 +18,55 @@ import numpy as np
 from dexterity_tpu_torch.core import spec as S
 from dexterity_tpu_torch.core.types import (ActuatorTrn, BiasType, EqType,
                                             GeomType, JointType)
+
+_ENUMS = {'type': None}  # the JAX module's name; no encoder reads it
+
+
+def _enc(value):
+  if isinstance(value, np.ndarray):
+    return value.tolist()
+  if isinstance(value, (np.floating, np.integer)):
+    return value.item()
+  if isinstance(value, (JointType, GeomType, ActuatorTrn, BiasType, EqType)):
+    return int(value)
+  if isinstance(value, tuple):
+    return [_enc(v) for v in value]
+  if isinstance(value, list):
+    return [_enc(v) for v in value]
+  if isinstance(value, float) and (value == np.inf or value == -np.inf):
+    return 'inf' if value > 0 else '-inf'
+  return value
+
+
+def _enc_dataclass(obj) -> Dict[str, Any]:
+  out = {}
+  for f in dataclasses.fields(obj):
+    v = getattr(obj, f.name)
+    if isinstance(v, list) and v and dataclasses.is_dataclass(v[0]):
+      out[f.name] = [_enc_dataclass(c) for c in v]
+    elif f.name == 'inertial':
+      out[f.name] = _enc_dataclass(v) if v is not None else None
+    elif dataclasses.is_dataclass(v) and not isinstance(v, type):
+      out[f.name] = _enc_dataclass(v)
+    else:
+      out[f.name] = _enc(v)
+  return out
+
+
+def spec_to_dict(spec: S.ModelSpec) -> Dict[str, Any]:
+  return {
+      'name': spec.name,
+      'option': _enc_dataclass(spec.option),
+      'worldbody': _enc_dataclass(spec.worldbody),
+      'tendons': [_enc_dataclass(t) for t in spec.tendons],
+      'actuators': [_enc_dataclass(a) for a in spec.actuators],
+      'equalities': [_enc_dataclass(e) for e in spec.equalities],
+      'pairs': [_enc_dataclass(p) for p in spec.pairs],
+      'excludes': [_enc_dataclass(x) for x in spec.excludes],
+      'pruned_pairs': sorted([list(p) for p in spec.pruned_pairs]),
+      'meshes': {k: _enc_dataclass(m) for k, m in sorted(spec.meshes.items())},
+  }
+
 
 def _dec_float(v):
   if v == 'inf':
@@ -110,6 +162,11 @@ def spec_from_dict(d: Dict[str, Any]) -> S.ModelSpec:
         pos=_dec_tuple(m.get('pos', (0.0, 0.0, 0.0))),
         quat=_dec_tuple(m.get('quat', (1.0, 0.0, 0.0, 0.0))))
   return spec
+
+
+def save_spec(spec: S.ModelSpec, path: str) -> None:
+  with open(path, 'w') as f:
+    json.dump(spec_to_dict(spec), f, indent=1)
 
 
 def load_spec(path: str) -> S.ModelSpec:

@@ -58,3 +58,7 @@ class ActuatorEffector(effector.Effector):
   @property
   def prefix(self) -> str:
     return self._prefix
+
+
+# Backwards-compatible alias matching the reference class name.
+MujocoEffector = ActuatorEffector

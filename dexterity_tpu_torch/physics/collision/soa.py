@@ -54,6 +54,21 @@ def masked_topk_select(dist, payloads, k):
   return _stack(d_rows), [_stack(rows) for rows in p_rows]
 
 
+def vec3(a) -> V3:
+  """A (..., 3) tensor as its three planes."""
+  return a.unbind(-1)
+
+
+def mat3(a) -> M3:
+  """A (..., 3, 3) tensor as its row-major 9-tuple of planes."""
+  return tuple(a[..., i, j] for i in range(3) for j in range(3))
+
+
+def stack_v3(v: V3):
+  """Three planes back into a (..., 3) tensor."""
+  return torch.stack(v, dim=-1)
+
+
 def add(u, v):
   return (u[0] + v[0], u[1] + v[1], u[2] + v[2])
 

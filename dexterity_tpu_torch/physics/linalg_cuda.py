@@ -23,7 +23,8 @@ result.
 public names.  There the "factor" is backend-dependent (the packed Pallas
 factor on a TPU, the matrix itself elsewhere); here it is the packed
 factor on both devices.  What the two packages agree on is the pair's
-solution.
+solution.  linalg_pallas's `cholesky_factor_b` / `cholesky_resolve_b`
+are the same two functions here, under those names.
 
 Bound on the card: at the planner's shapes (B = 1024, n = 30, float32) K1
 moves 2·B·n²·4 bytes (~7.4 MB, ~2.2 us at 3.35 TB/s), K4 the same less
@@ -462,3 +463,9 @@ def cholesky_solve(h: torch.Tensor, g: torch.Tensor):
   if _differentiating(h, g):
     return _Solve.apply(h, g)
   return _Solve.forward(h, g)
+
+
+# linalg_pallas's rank-polymorphic names; cholesky_factor takes (..., n, n).
+cholesky_factor_b = cholesky_factor
+# cholesky_resolve takes (..., n, n) and (..., n).
+cholesky_resolve_b = cholesky_resolve

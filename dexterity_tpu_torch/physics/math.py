@@ -11,6 +11,16 @@ from __future__ import annotations
 
 import torch
 
+from dexterity_tpu_torch.core import types
+
+
+def quat_identity(dtype: torch.dtype = torch.float32,
+                  device=None) -> torch.Tensor:
+  """The identity quaternion (1, 0, 0, 0) on `device` (cuda unless
+  given)."""
+  return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype,
+                      device=types.resolve_device(device))
+
 
 def _ones_like_w(q):
   return torch.eye(1, 4, dtype=q.dtype, device=q.device)[0]

@@ -383,6 +383,46 @@ def test_wide_and_shared_designs_agree(dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_shared_design_at_the_top_of_the_pallas_range(dtype):
+  """At n = 80, the largest n of the JAX package's Pallas kernels, K1-K4
+  run the shared design; each is held against its plain version on the
+  same card inputs within 100 cond eps of the solution's scale (the
+  packed factors on their lower triangles, to 100 n eps of their
+  max-abs), with one launch each through the entry points."""
+  _cuda()
+  n = 80
+  gen = torch.Generator().manual_seed(22)
+  a = torch.randn(64, n, n, generator=gen, dtype=torch.float64)
+  h = (a @ a.transpose(1, 2) / n + torch.eye(n, dtype=torch.float64)).to(
+      'cuda', dtype)
+  g = torch.randn(64, n, generator=gen, dtype=torch.float64).to(
+      'cuda', dtype)
+  for mode in (LC._MODE_SOLVE_FACTOR, LC._MODE_RESOLVE, LC._MODE_SOLVE,
+               LC._MODE_FACTOR):
+    assert LC._design(n, dtype, mode) == 'shared'
+  eps = torch.finfo(dtype).eps
+  tol = _cond_tol(h, torch.linalg.solve(h.double(), g.double()), eps)
+  low = torch.tril(torch.ones(n, n, dtype=torch.bool, device='cuda'))
+  LC.reset_launches()
+  x1, fac1 = LC.cholesky_solve_factor(h, g)
+  x3 = LC.cholesky_solve(h, g)
+  fac4 = LC.cholesky_factor(h)
+  x_p, fac_p = LC.solve_factor_plain(h, g)
+  x2 = LC.cholesky_resolve_const(fac_p, g)
+  torch.cuda.synchronize()
+  assert LC.launches == {'cholesky_solve_factor': 1,
+                         'cholesky_resolve_const': 1, 'cholesky_solve': 1,
+                         'cholesky_factor': 1}
+  for got, want in ((x1, x_p), (x3, x_p),
+                    (x2, LC.resolve_plain(fac_p, g))):
+    assert (got - want).abs().max().item() <= tol
+  fac_tol = 100 * n * eps * fac_p[:, low].abs().max().item()
+  for fac in (fac1, fac4):
+    assert (fac - fac_p)[:, low].abs().max().item() <= fac_tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 def test_wide_design_on_a_rank_deficient_batch(dtype):
   """K1, K3, K4 and the K4 + K2 pair in the wide design at n = 62 on SPD
   matrices with every third dof's row and column zeroed: those pivots are
