@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--profile]
     python3 chip_smoke.py --closed-loop SEED [--max-wall SECONDS]
     python3 chip_smoke.py --hold-readings N
+    python3 chip_smoke.py --phase-split [CASES]
 
 Needs a CUDA device and the repository checkout beside this file; exits
 non-zero otherwise, and on any failed check.  Phases, one JSON line each:
@@ -11,8 +12,8 @@ non-zero otherwise, and on any failed check.  Phases, one JSON line each:
   0. probe: torch/CUDA versions, the card, the kernel build (one nvcc per
      csrc/*.cu source, all started together, sm_90a), and the registers
      and spills of the register-design kernels, K1-K4 in both types, and
-     of the wide-design kernels, K1-K4 in both types (none may spill),
-     and of the tree-sweep kernels.
+     of the wide-design kernels, K1-K4 in both types at 64 rows and K1
+     and K4 at 80 (none may spill), and of the tree-sweep kernels.
   1. rollouts: the ShadowHand reorient planning model (4 Newton iterations,
      6 line-search steps, refactor every 2, 3 substeps, contact budget
      16/16, implicit damping, no self-collision) steps B = 1024 rollouts
@@ -81,8 +82,11 @@ non-zero otherwise, and on any failed check.  Phases, one JSON line each:
      turns with the shared design, beside its bound (one triangle, and
      n^2 in `bound_square_ms`), its plain version and the library call.
      Then `size_n80`: the same at (1024, 80, 80), the top of the JAX
-     package's Pallas range, for K1-K4, which run the shared design
-     there and are each timed alone (two complete profiler windows).
+     package's Pallas range, for K1-K4: K1 and K4 run the wide design's
+     80-row layout there (three warps a matrix; checked from the
+     profiled kernel names) and are timed in turns with the shared
+     design, K2 and K3 run the shared design and are each timed alone
+     (two complete profiler windows).
   8. closed_loop: scripts/eval_closed_loop_batch.py's configuration (256
      samples, 2 iterations, horizon 10, 4 knots, the task's 5 substeps,
      refactor every 4, its keep-in-hand shaping) on 4 goals from reset
@@ -234,6 +238,13 @@ N seeds, sound and faulted (IK_QDOT_LIMIT's readings); then the pixel
 hold on N seeds (PIXEL_LIMITS' readings: the card and the CPU float32
 port sound; hinges moved by 0.01 rad and TF32 products faulted), or the
 renderer's absence.
+
+--phase-split [CASES] runs the probe and then only the split of K1's and
+K4's time at (1024, n, n) float32 into the load, the pivot chain and the
+rest (the factor's store; K1's substitutions), from a build of the
+Cholesky sources with DEX_PHASE_CLOCKS, whose warps stamp clock64() at
+each boundary; CASES is a comma list of shared80, wide62 and wide80
+(default all).
 """
 
 from __future__ import annotations
@@ -271,9 +282,13 @@ PC_SOLVES = 3
 # The juggle model's nv (ROADMAP §A.3), where K1 and K2 leave the register
 # design.
 JUGGLE_NV = 62
-# The top of the JAX package's Pallas range (linalg_pallas._max_pallas_n),
-# above the wide design's n <= 64: K1-K4 run the shared design there.
+# The top of the JAX package's Pallas range (linalg_pallas._max_pallas_n):
+# K1 and K4 run the wide design's 80-row layout there, K2 and K3 (wide up
+# to n = 64) the shared design.
 N_TOP = 80
+# --phase-split's cases: label -> (design, n).
+SPLIT_CASES = {'shared80': ('shared', N_TOP), 'wide62': ('wide', JUGGLE_NV),
+               'wide80': ('wide', N_TOP)}
 # Environment phase: GoalEnvironment.reset of B_EPISODES episodes, then
 # ENV_STEPS control steps; the first ENV_CHECKED held against the CPU.
 B_EPISODES = 32
@@ -577,12 +592,13 @@ def phase_probe(torch, pkg, smi):
   ptxas = {name: [ln.strip() for ln in log.splitlines()
                   if 'registers' in ln or 'spill' in ln][:12]
            for name, log in logs.items()}
-  # The register design's eight kernels and the wide design's eight (K1-K4
-  # in float32 and float64 each): none may spill.
+  # The register design's eight kernels and the wide design's twelve
+  # (K1-K4 at 64 rows, K1 and K4 at 80, in float32 and float64 each):
+  # none may spill.
   regs = _ptxas_entries(logs.get('cholesky_regs', ''), 'cholesky_regs_')
   check(len(regs) == 8, f'register-design kernels in the ptxas log: {regs}')
   wide = _ptxas_entries(logs.get('cholesky_wide', ''), 'cholesky_wide_')
-  check(len(wide) == 8, f'wide-design kernels in the ptxas log: {wide}')
+  check(len(wide) == 12, f'wide-design kernels in the ptxas log: {wide}')
   for label, v in (*regs.items(), *wide.items()):
     check(v.get('spill_stores') == 0 and v.get('spill_loads') == 0,
           f'{label} spills: {v}')
@@ -608,8 +624,9 @@ def _ptxas_entries(log, prefix):
   """Registers and spill bytes of each kernel whose mangled name holds
   `prefix`, from nvcc's `-Xptxas -v` log, labelled kernel_type: the
   register designs' solve_factor kernels by their flags (K1 solve_factor,
-  K3 solve, K4 factor).  Names that do not parse as a kernel's are left
-  out."""
+  K3 solve, K4 factor), a wide kernel's layout of other than 64 rows by
+  its row count (`factor_n80_f32`).  Names that do not parse as a
+  kernel's are left out."""
   out, cur = {}, None
   for ln in log.splitlines():
     m = re.search(r"(?:Compiling entry function|Function properties for) "
@@ -621,9 +638,12 @@ def _ptxas_entries(log, prefix):
                     m.group(1))
       cur = None
       if t:
-        kind, args = t.group(1), tuple(re.findall(r'L[bi](\d+)E', t.group(3)))
+        kind, args = t.group(1), t.group(3)
         if kind == 'solve_factor':
-          kind = _REG_KINDS[args]
+          kind = _REG_KINDS[tuple(re.findall(r'Lb(\d)E', args))]
+        rows = re.findall(r'Li(\d+)E', args)
+        if rows and rows[0] != '64':
+          kind = f'{kind}_n{rows[0]}'
         cur = f'{kind}_{"f32" if t.group(2) == "f" else "f64"}'
         out.setdefault(cur, {})
       continue
@@ -3309,6 +3329,20 @@ def _ran_design(names):
   return 'shared' if any('cholesky_kernel' in k for k in names) else None
 
 
+def _wide_layout(names):
+  """(rows, warps) of the wide design's kernel among profiled kernel
+  names (K1/K3/K4 from their template arguments, demangled or mangled;
+  K2 has the 64-row layout only), or None."""
+  for k in names:
+    if 'cholesky_wide_resolve' in k:
+      return (64, 2)
+    if 'cholesky_wide_solve' in k:
+      m = (re.search(r'<\w+, (\d+), (\d+),', k) or
+           re.search(r'I[fd]Li(\d+)ELi(\d+)E', k))
+      return (int(m.group(1)), int(m.group(2))) if m else None
+  return None
+
+
 def _bound(b, n, elem, kind, square=False):
   """Least time (ms) for the work: bytes (each input read once, each
   output written once) over HBM rate vs FMAs over the FP32/FP64 rate.
@@ -3534,8 +3568,14 @@ def _design_turns(torch, lc, name, mode, n, fn, prev):
   design = lc._design(n, torch.float32, mode)
   check(ran == {design} and design != 'shared' and ran_prev == {'shared'},
         f'{name} at n={n}: ran {ran}, previous {ran_prev}')
+  layout = None
+  if design == 'wide':
+    layouts = {_wide_layout(names) for _, names in turns[::3]}
+    layout = (64, 2) if n <= 64 else (80, 3)
+    check(layouts == {layout}, f'{name} at n={n}: wide layouts {layouts}')
   return (turns[0][0] + turns[3][0]) / 2, {
-      'design': design, 'previous_design': 'shared',
+      'design': design, 'layout': layout,
+      'previous_design': 'shared',
       'previous_design_ms': (turns[1][0] + turns[2][0]) / 2,
       'previous_design_call_ms': _call_ms(torch, prev, 100),
       'turns_ms': {'design': [turns[0][0], turns[3][0]],
@@ -3596,16 +3636,17 @@ def phase_juggle_size(torch, pkg, dev, n=JUGGLE_NV):
   cholesky_resolve, cholesky_solve_factor and cholesky_solve entry points
   (one launch each), then for each kernel timed here its agreement with
   its plain version, the design that ran, its device time and
-  _timing_row's fields (with the bound counting n^2 beside it).  At
-  juggle's nv = 62 (the wide design) K1, K2 and K4 are timed in turns
-  with the shared design (_design_turns; K3 is timed on juggle's own
-  Hessians, `k3_task_sizes`).  Above the wide design's range (N_TOP = 80,
-  the top of the JAX package's Pallas range) all four run the shared
-  design, which is the previous design there, so each is timed alone
+  _timing_row's fields (with the bound counting n^2 beside it).  A kernel
+  that runs the wide design at n is timed in turns with the shared design
+  (_design_turns): K1, K2 and K4 at juggle's nv = 62 (K3 is timed on
+  juggle's own Hessians, `k3_task_sizes`), K1 and K4 at N_TOP = 80, the
+  top of the JAX package's Pallas range.  K2 and K3 run the shared design
+  at N_TOP, which is the previous design there, so each is timed alone
   (_shared_alone).  Returns the rows and the entry points' launches."""
   t_phase = time.perf_counter()
   lc = pkg['linalg_cuda']
-  wide = n <= lc._WIDE_MAX_N
+  # Every mode has the wide design (K3's range is the narrowest).
+  wide = n <= lc._WIDE_MAX_N[lc._MODE_SOLVE]
   gen = torch.Generator().manual_seed(SEED + (5 if wide else 6))
   a = torch.randn(B_PLAN, n, n, generator=gen, dtype=torch.float64)
   h = ((a @ a.transpose(1, 2)) / n + torch.eye(n, dtype=torch.float64)).to(
@@ -3672,18 +3713,107 @@ def phase_juggle_size(torch, pkg, dev, n=JUGGLE_NV):
         'solve')
   out = {}
   for name, (mode, fn, plain, prev, lib, kind) in kernels.items():
-    if wide:
+    if lc._design(n, torch.float32, mode) == 'wide':
       ms, row = _design_turns(torch, lc, name, mode, n, fn, prev)
     else:
       ms, row = _shared_alone(torch, lc, name, mode, n, fn)
     out[name] = {**row, 'ms': ms, 'kernel_ms': ms, **held(name, fn, plain),
                  **_timing_row(torch, fn, plain, lib, B_PLAN, n, kind),
                  'bound_square_ms': _bound(B_PLAN, n, 4, kind, True)[0]}
+    if 'previous_design_ms' in out[name]:
+      out[name]['ms_over_previous'] = ms / out[name]['previous_design_ms']
+    out[name]['ms_over_library'] = ms / out[name]['library_ms']
   emit({'phase': 'juggle_size' if n == JUGGLE_NV else f'size_n{n}',
         'shape': [B_PLAN, n, n], 'dtype': 'float32',
         'entry_launches': launches, 'kernels': out,
         'phase_s': time.perf_counter() - t_phase})
   return out, launches
+
+
+def phase_split(torch, pkg, cases):
+  """Where K1's and K4's time goes at (B_PLAN, n, n) float32 on seeded SPD
+  matrices, for each case of SPLIT_CASES named in `cases`: the design's
+  source built with DEX_PHASE_CLOCKS (cuda_build.variant), whose every
+  warp stamps clock64() at entry, with its rows loaded, after its pivots
+  and at its end.  Per matrix (the stamps of one SM): load = the last
+  warp's 'loaded' less the first entry, pivots = the last 'pivots done'
+  less the last 'loaded', rest (the factor's store; K1's substitutions)
+  = the last end less the last 'pivots done', span = the last end less
+  the first entry.  Reported: each part's mean in cycles and its share of
+  the mean span, the time per call of the kernel as built for the port
+  and of the stamped one (_call_ms, 20 back-to-back calls: host time
+  included, so a kernel of a few tens of us reads the host's), and the
+  part of the former each share gives.  The stamped kernel's factor is
+  held to the plain version."""
+  import ctypes
+  t_phase = time.perf_counter()
+  lc, cuda_build = pkg['linalg_cuda'], pkg['cuda_build']
+  entries = {}
+  for design, src, entry in (('shared', 'cholesky', 'dex_cholesky'),
+                             ('wide', 'cholesky_wide', 'dex_cholesky_wide')):
+    lib = cuda_build.variant(src, 'DEX_PHASE_CLOCKS')
+    lib.dex_phase_clocks.restype = ctypes.c_int
+    lib.dex_phase_clocks.argtypes = [ctypes.c_void_p]
+    entries[design] = (lc._bind(getattr(lib, entry)), lib.dex_phase_clocks)
+  dev = torch.device('cuda', torch.cuda.current_device())
+  out = {}
+  for case in cases:
+    design, n = SPLIT_CASES[case]
+    gen = torch.Generator().manual_seed(SEED + n)
+    a = torch.randn(B_PLAN, n, n, generator=gen, dtype=torch.float64)
+    h = ((a @ a.transpose(1, 2)) / n + torch.eye(n, dtype=torch.float64)).to(
+        dev).float()
+    g = torch.randn(B_PLAN, n, generator=gen, dtype=torch.float64).to(
+        dev).float()
+    warps = 1 if design == 'shared' else (2 if n <= 64 else 3)
+    fn, set_clocks = entries[design]
+    for mode, name in ((lc._MODE_SOLVE_FACTOR, 'cholesky_solve_factor'),
+                       (lc._MODE_FACTOR, 'cholesky_factor')):
+      rhs = mode == lc._MODE_SOLVE_FACTOR
+      x = torch.empty_like(g) if rhs else None
+      fac = torch.empty_like(h)
+      per_block = min(lc._PER_BLOCK[design], lc._MAX_SMEM //
+                      lc._matrix_smem_bytes(n, 4, design, mode))
+      clocks = torch.zeros(B_PLAN, 4, 4, dtype=torch.int64, device=dev)
+      check(set_clocks(clocks.data_ptr()) == 0, f'{case}: clock pointer')
+
+      def stamped():
+        err = cuda_build.launch(
+            fn, dev, mode, 4, h.data_ptr(), g.data_ptr() if rhs else None,
+            x.data_ptr() if rhs else None, fac.data_ptr(), B_PLAN, n,
+            per_block)
+        check(err == 0, f'{case} {name}: stamped launch failed ({err})')
+
+      def built():
+        lc._launch(mode, name, h, g if rhs else None, want_factor=True,
+                   design=design)
+
+      stamped()
+      torch.cuda.synchronize()
+      want = lc.factor_plain(h)
+      low = torch.tril(torch.ones(n, n, dtype=torch.bool, device=dev))
+      err = (fac - want)[:, low].abs().max().item()
+      check(err <= 1e-4 * want[:, low].abs().max().item(),
+            f'{case} {name}: stamped factor {err}')
+      c = clocks[:, :warps].double()
+      entry, loaded = c[..., 0].amin(1), c[..., 1].amax(1)
+      pivoted, end = c[..., 2].amax(1), c[..., 3].amax(1)
+      check(bool((c > 0).all()), f'{case} {name}: a stamp is missing')
+      parts = {'load': (loaded - entry).mean().item(),
+               'pivots': (pivoted - loaded).mean().item(),
+               'rest': (end - pivoted).mean().item()}
+      span = (end - entry).mean().item()
+      ms = {'built': _call_ms(torch, built, 20),
+            'stamped': _call_ms(torch, stamped, 20)}
+      out[f'{name}_{case}'] = {
+          'design': design, 'n': n, 'warps_per_matrix': warps,
+          'cycles': parts, 'span_cycles': span,
+          'share': {k: v / span for k, v in parts.items()},
+          'ms': ms, 'ms_split': {k: v / span * ms['built']
+                                 for k, v in parts.items()}}
+  emit({'phase': 'phase_split', 'shape_b': B_PLAN, 'dtype': 'float32',
+        'cases': out, 'phase_s': time.perf_counter() - t_phase})
+  return out
 
 
 def _shared_alone(torch, lc, name, mode, n, fn):
@@ -4216,6 +4346,11 @@ def main():
                            'float64 port on N seeds, sound and faulted (the '
                            'readings TASK_LIMITS, IK_QDOT_LIMIT and '
                            'PIXEL_LIMITS are set from)')
+  parser.add_argument('--phase-split', nargs='?', const=','.join(SPLIT_CASES),
+                      metavar='CASES',
+                      help='run only the split of K1 and K4 into load, '
+                           'pivots and rest for the comma-separated cases '
+                           f'({", ".join(SPLIT_CASES)}; default all)')
   args = parser.parse_args()
 
   import torch
@@ -4227,8 +4362,13 @@ def main():
 
   smi = nvidia_smi_line()
   phase_probe(torch, pkg, smi)
-  if args.closed_loop is not None or args.hold_readings is not None:
-    if args.closed_loop is not None:
+  if (args.closed_loop is not None or args.hold_readings is not None or
+      args.phase_split is not None):
+    if args.phase_split is not None:
+      cases = args.phase_split.split(',')
+      check(set(cases) <= set(SPLIT_CASES), f'unknown cases {cases}')
+      phase_split(torch, pkg, cases)
+    elif args.closed_loop is not None:
       phase_closed_loop(torch, pkg, BAR_GOALS, BAR_STEPS, args.closed_loop,
                         bar=True, max_wall=args.max_wall, smi=smi)
     else:
@@ -4326,14 +4466,14 @@ def main():
                  'source': source, 'replaces': f'{_LP}:74', **row,
                  'card': smi})
   replaces = {name: rep for name, rep, _, _ in KERNELS}
-  for n, source, rows_n, launches_n in (
-      (JUGGLE_NV, _WIDE, juggle_rows, juggle_launches),
-      (N_TOP, _CHOL, top_rows, top_launches)):
+  sources = {'wide': _WIDE, 'shared': _CHOL}
+  for n, rows_n, launches_n in ((JUGGLE_NV, juggle_rows, juggle_launches),
+                                (N_TOP, top_rows, top_launches)):
     for name, row in rows_n.items():
       launches = launches_n[name]
       check(launches > 0, f'{name} was not launched at n = {n}')
       line.append({'name': f'{name}_n{n}_b{B_PLAN}', 'kernel': name,
-                   'route': 'cuda', 'source': source,
+                   'route': 'cuda', 'source': sources[row['design']],
                    'replaces': replaces[name], 'path': 'entry:linalg_cuda',
                    'launches': launches, **row, 'card': smi})
   for name, row in ilqr_rows:

@@ -13,9 +13,10 @@
 // applies one rank-1 trailing update per pivot, each a warp-wide step
 // closed by __syncwarp(); the forward and back substitutions run one pivot
 // per step across the lanes.  Several warps (independent matrices) share a
-// block.  It serves K1-K4 at n > 64, beyond the register design of
-// cholesky_regs.cu (n <= 32) and the wide design of cholesky_wide.cu
-// (n <= 64); no model of the repository reaches it.  At any n it stays the
+// block.  It serves K2 and K3 at n > 64 and K1 and K4 at n > 80, beyond
+// the register design of cholesky_regs.cu (n <= 32) and the wide design
+// of cholesky_wide.cu (n <= 64, K1 and K4 n <= 80); no model of the
+// repository reaches it.  At any n it stays the
 // yardstick a run times the other designs against, in turns
 // (linalg_cuda._launch(..., design='shared')).
 //
@@ -49,6 +50,21 @@ __device__ __forceinline__ double clamp_rsqrt(double x) {
   return rsqrt(fmax(x, 1e-12));
 }
 
+// Cycle stamps of each matrix at entry, with the matrix loaded, after the
+// pivots and at its end: (batch, 4, 4) int64 (warp slot 0), in a build
+// with DEX_PHASE_CLOCKS defined only (chip_smoke.py --phase-split).
+#ifdef DEX_PHASE_CLOCKS
+__device__ long long* g_phase_clocks;
+#define DEX_STAMP(mat, lane, i)                                            \
+  do {                                                                     \
+    if ((lane) == 0) g_phase_clocks[(mat) * 16 + (i)] = clock64();         \
+  } while (0)
+#else
+#define DEX_STAMP(mat, lane, i) \
+  do {                          \
+  } while (0)
+#endif
+
 // Shared-memory row stride: n rounded up to an odd count.
 __host__ __device__ inline int row_stride(int n) { return n | 1; }
 
@@ -68,6 +84,7 @@ __global__ void cholesky_kernel(const T* __restrict__ a_in,
   const int warp = threadIdx.x / kWarp;
   const int64_t mat = (int64_t)blockIdx.x * (blockDim.x / kWarp) + warp;
   if (mat >= batch) return;  // whole warp exits together
+  DEX_STAMP(mat, lane, 0);
 
   const int ld = row_stride(n);
   T* a = smem + (size_t)warp * warp_smem_elems(n);
@@ -81,6 +98,7 @@ __global__ void cholesky_kernel(const T* __restrict__ a_in,
     for (int i = lane; i < n; i += kWarp) y[i] = g_in[mat * n + i];
   }
   __syncwarp();
+  DEX_STAMP(mat, lane, 1);
 
   if (MODE != MODE_RESOLVE) {
     // Right-looking Cholesky; the diagonal ends up holding 1 / L_kk.
@@ -97,6 +115,7 @@ __global__ void cholesky_kernel(const T* __restrict__ a_in,
       __syncwarp();
     }
   }
+  DEX_STAMP(mat, lane, 2);
 
   if (MODE == MODE_SOLVE_FACTOR || MODE == MODE_FACTOR) {
     T* dst = fac_out + mat * (int64_t)n * n;
@@ -123,6 +142,7 @@ __global__ void cholesky_kernel(const T* __restrict__ a_in,
       __syncwarp();
     }
   }
+  DEX_STAMP(mat, lane, 3);
 }
 
 template <typename T, int MODE>
@@ -184,5 +204,12 @@ int dex_cholesky(int mode, int elem_bytes, const void* a, const void* g,
                             stream);
   return (int)cudaErrorInvalidValue;
 }
+
+#ifdef DEX_PHASE_CLOCKS
+// Points the kernels' cycle stamps at `clocks`, (batch, 4, 4) int64.
+int dex_phase_clocks(void* clocks) {
+  return (int)cudaMemcpyToSymbol(g_phase_clocks, &clocks, sizeof(clocks));
+}
+#endif
 
 }  // extern "C"

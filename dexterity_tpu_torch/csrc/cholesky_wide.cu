@@ -1,6 +1,7 @@
 // Batched small dense Cholesky kernels for Hopper (sm_90a), wide register
 // design: all four modes at 32 < n <= 64, the sizes of the juggle task's
-// two-hand model (n = nv = 62).
+// two-hand model (n = nv = 62), and K1 and K4 at 64 < n <= 80, the top of
+// the JAX package's Pallas range.
 //
 // Port of dexterity_tpu/physics/linalg_pallas.py:
 //   MODE_SOLVE        <- _kernel               (:74,  cholesky_solve, K3)
@@ -14,7 +15,7 @@
 // stage and its bulk store (K1, K4), kSolve the rhs, the forward
 // substitution in the pivot loop and the back substitution (K1, K3).  K2
 // is a kernel of its own.  cholesky_regs.cu serves n <= 32, cholesky.cu
-// every mode at n > 64.
+// K2 and K3 at n > 64 and K1 and K4 at n > 80.
 //
 // Numerics match the Pallas kernels: right-looking order (each a_ij takes
 // its rank-1 terms for k = 0, 1, ... in order), pivot clamp
@@ -24,9 +25,13 @@
 // terms in k order and each x_i its terms for k = n - 1, n - 2, ..., as
 // _resolve_kernel does.
 //
-// One matrix per group of two warps (64 threads), thread i holding row i
-// in registers; rows and columns n .. 63 are the identity's, so the pivot
-// loop is unrolled over all 64 pivots and a padded pivot changes nothing.
+// One matrix per group of kWarps warps, thread i holding row i in
+// registers; rows and columns n .. kRows - 1 are the identity's, so the
+// pivot loop is unrolled over all kRows pivots and a padded pivot changes
+// nothing.  Two layouts (the kernel is templated on rows and warps):
+// kRows = 64 over two warps (every mode, 32 < n <= 64) and kRows = 80
+// over three warps (K1 and K4, 64 < n <= 80; threads 80 .. 95 hold no
+// row and take part in the barriers and shuffles only).
 // (cholesky_regs.cu with two rows per lane spills K1 in both types under
 // ptxas 12.8: one row per thread halves the row state.)
 //
@@ -38,7 +43,8 @@
 //     (32, 62, 62) the card is nearly empty and the floor is the 62-step
 //     dependent chain: pivot k + 1 needs pivot k's column.
 //   - K1 at (1024, 62, 62): bytes, 4.93 us; K4 the same less the two
-//     vectors: bytes, 4.78 us.  Both run K3's pivot chain.
+//     vectors: bytes, 4.78 us.  Both run K3's pivot chain.  At
+//     (1024, 80, 80): bytes, 8.12 and 7.92 us.
 //   - K2 at (1024, 62, 62): bytes, 2.54 us (a triangle and two vectors a
 //     matrix; its n^2 FMAs are nothing).  At (32, 62, 62): the chain of 2n
 //     substitution steps, each a shuffle and an FMA.
@@ -52,21 +58,24 @@
 //     registers.
 //   - operations: each thread updates its own row, reading the pivot
 //     column from shared memory with 16-byte broadcast loads (four floats
-//     or two doubles an instruction).  Warp 0's rows 0 .. 31 end left of
-//     column 32: it updates columns below 32 only and is done after pivot
-//     31: a matrix takes 32 x (2,016 + 496) = 80,384 FMAs, about the
-//     n^3 / 3 that bound counts at n = 62.
-//   - the factor's chain: one 64-thread named barrier (bar.sync id, 64; one
-//     id per matrix group) per pivot while both warps work, __syncwarp()
-//     once warp 1 is alone, and nothing block-wide.  Every pivot's
-//     column has its own slot (64 slots, kept for the back substitution),
-//     so a slot is never rewritten and one barrier orders both the writes
-//     of pivot k and the reads of pivot k - 1.  The pivot's inverse
-//     diagonal rides in the slot of the pivot before it: thread k + 1
-//     updates its own diagonal with its own l_{k+1,k} (the FFMA the column
-//     update repeats, to the bit) and stores rsqrt of it beside column k,
-//     so the barrier that publishes column k publishes inv_{k+1} too; y_k
-//     of the fused forward substitution rides there as well.
+//     or two doubles an instruction).  Warp w's rows end left of column
+//     32 (w + 1): it updates the columns below that only and is done after
+//     pivot 32 (w + 1) - 1.  At n = 62 a matrix takes 32 x (2,016 + 496) =
+//     80,384 FMAs, about the n^3 / 3 that bound counts.
+//   - the factor's chain: one named barrier per pivot (bar.sync id, count)
+//     of the warps still working, __syncwarp() once one warp is left, and
+//     nothing block-wide.  Pivots 0 .. 31 meet at the group's barrier (id
+//     1 + group, every warp); with three warps, pivots 32 .. 63 meet at a
+//     64-thread barrier of warps 1 and 2 (id 1 + kWideGroups + group);
+//     the last warp runs the rest alone.  Every pivot's column has its
+//     own slot (kRows slots, kept for the back substitution), so a slot
+//     is never rewritten and one barrier orders both the writes of pivot k
+//     and the reads of pivot k - 1.  The pivot's inverse diagonal rides in
+//     the slot of the pivot before it: thread k + 1 updates its own
+//     diagonal with its own l_{k+1,k} (the FFMA the column update repeats,
+//     to the bit) and stores rsqrt of it beside column k, so the barrier
+//     that publishes column k publishes inv_{k+1} too; y_k of the fused
+//     forward substitution rides there as well.
 //   - K2's chain, blocked by warp: two barriers a solve instead of one a
 //     step.  Forward: warp 0 solves y_0 .. y_31 by shuffles (lane k
 //     broadcasts y_k / L_kk, a multiply by the stored inverse) and
@@ -75,15 +84,28 @@
 //     shuffles.  Back substitution as K1's below, with column i of L read
 //     down the stage (the lanes of a warp at consecutive addresses): no
 //     transpose and no column slots.
-//   - occupancy: the barrier's id is not a constant, so ptxas reserves all
-//     16 named barriers for a block, and a Hopper SM then holds at most 4
-//     such blocks; a block takes two matrices (kWideGroups; four were
-//     slower), 8 a SM, 1,056 a wave.
+//   - registers at kRows = 80: left alone, ptxas issues a pivot's whole
+//     column (up to 40 16-byte loads) before its first FMA: float32 K1
+//     then needs more registers than two blocks an SM allow, and float64
+//     K1 spills.  So a never-taken branch every kChunk columns of the
+//     update bounds the loads in flight (float32 K1 152 registers, K4
+//     148: two blocks an SM), and in float64 the last warp keeps its own
+//     16 columns out of its registers until pivot 64: warps 1 and 2 then
+//     both update 64 columns through pivots 0 .. 63, and warp 2 gives its
+//     last 16 their 64 deferred terms in one pass with no barrier
+//     (deferred_block), in the same order, to the bit (190 registers, no
+//     spill; float32 fits without that pass, which only adds latency).
+//   - occupancy: the barriers' ids are not constants, so ptxas reserves
+//     all 16 named barriers for a block, and a Hopper SM then holds at
+//     most 4 such blocks whatever the ids used; a block takes two matrices
+//     (kWideGroups; four were slower at n = 62), and at kRows = 80 the
+//     registers decide how many blocks an SM holds.
 //   - the back substitution needs columns of L, which a thread cannot take
 //     from other threads' registers: thread j reads its column j from the
-//     slots (K1, K3) or the stage (K2) off the chain.  Rows 32 .. 63 solve
-//     their block within warp 1 by shuffles and publish x; after one
-//     barrier, warp 0 subtracts them and solves its block by shuffles.
+//     slots (K1, K3) or the stage (K2) off the chain.  It is blocked by
+//     warp from the last: the last warp solves its rows by shuffles and
+//     publishes x; after one barrier each warp above subtracts them, and
+//     the next warp up solves its block, until warp 0.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -91,13 +113,31 @@
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kRows = 64;   // rows of a group: one per thread
-constexpr int kGroup = 64;  // threads per matrix
 constexpr int kWideGroups = 2;  // matrices per block (linalg_cuda mirrors)
 constexpr int MODE_SOLVE = 0;
 constexpr int MODE_SOLVE_FACTOR = 1;
 constexpr int MODE_RESOLVE = 2;
 constexpr int MODE_FACTOR = 3;
+
+// A matrix of at most kRows_ rows, a row per thread over kWarps_ warps.
+// kChunk: columns of a pivot's update between never-taken branches (0:
+// none), which end a block ptxas cannot schedule across (see pivots).
+// kDefer: the last warp's own block of columns, from kLastBase on, stays
+// out of its registers until its own phase (deferred_block; float64 at
+// kRows = 80).
+template <int kRows_, int kWarps_, bool kDefer_ = false>
+struct Layout {
+  static constexpr int kRows = kRows_;
+  static constexpr int kWarps = kWarps_;
+  static constexpr int kGroup = kWarps * kWarp;  // threads per matrix
+  static constexpr int kChunk = kRows > 64 ? 32 : 0;
+  static constexpr bool kDefer = kDefer_;
+  static constexpr int kLastBase = kWarp * (kWarps - 1);
+  // Columns load_row puts in registers.
+  static constexpr int kLoadCols = kDefer ? kLastBase : kRows;
+};
+
+__host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
 
 __device__ __forceinline__ float clamp_rsqrt(float x) {
   return rsqrtf(fmaxf(x, 1e-12f));
@@ -110,30 +150,59 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// The two warps of one matrix group meet at their own named barrier.
-__device__ __forceinline__ void group_sync(int id) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(kGroup) : "memory");
+// The kThreads threads of some warps of one matrix group meet at their own
+// named barrier.
+template <int kThreads>
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(kThreads) : "memory");
 }
 
+// Cycle stamps of each warp of each matrix at entry, with its rows loaded,
+// after its pivots and at its end: (batch, 4, 4) int64, in a build with
+// DEX_PHASE_CLOCKS defined only (chip_smoke.py --phase-split).
+#ifdef DEX_PHASE_CLOCKS
+__device__ long long* g_phase_clocks;
+#define DEX_STAMP(mat, warp, lane, i)                                    \
+  do {                                                                   \
+    if ((lane) == 0) g_phase_clocks[((mat) * 4 + (warp)) * 4 + (i)] =    \
+        clock64();                                                       \
+  } while (0)
+#else
+#define DEX_STAMP(mat, warp, lane, i) \
+  do {                                \
+  } while (0)
+#endif
+
 // Shared memory per group: a 16-byte slot for the mbarrier; except for K2,
-// 64 column slots of 64 elements plus 16 bytes (slot k holds column k of
-// L, then inv_{k+1} and y_k; each slot 16-byte aligned, and thread j's
-// reads of slot j spread over the banks); 32 elements for y or x of one
-// warp's rows; then, except for K3, the dense (n, n) stage with 64
-// elements of slack, so a padded row's loads stay inside it.  K3's stage
-// lies in the column slots.
-__host__ __device__ inline int wide_col_stride(int elem) {
-  return kRows + 16 / elem;
+// kRows column slots of kRows elements plus 16 bytes (slot k holds column
+// k of L, then inv_{k+1} and y_k; each slot 16-byte aligned, and thread
+// j's reads of slot j spread over the banks); 32 elements for y or x of
+// each warp but the first; then, except for K3, the dense (n, n) stage
+// with kRows elements of slack, so a padded row's loads stay inside it.
+// K3's stage lies in the column slots.
+__host__ __device__ inline int wide_col_stride(int rows, int elem) {
+  return rows + 16 / elem;
 }
-__host__ __device__ inline size_t wide_group_smem_bytes(int n, int elem,
+__host__ __device__ inline size_t wide_group_smem_bytes(int rows, int warps,
+                                                        int n, int elem,
                                                         int mode) {
   const size_t cols =
-      mode == MODE_RESOLVE ? 0 : (size_t)kRows * wide_col_stride(elem) * elem;
+      mode == MODE_RESOLVE
+          ? 0
+          : (size_t)rows * wide_col_stride(rows, elem) * elem;
   const size_t stage =
       mode == MODE_SOLVE ? 0
-                         : ((((size_t)n * n + kRows) * elem + 15) &
+                         : ((((size_t)n * n + rows) * elem + 15) &
                             ~(size_t)15);
-  return 16 + cols + (size_t)32 * elem + stage;
+  return 16 + cols + (size_t)32 * (warps - 1) * elem + stage;
+}
+
+// A branch that is never taken (n < 0): it ends a block that ptxas does
+// not schedule across.  The empty asm hides n's value, so that the
+// compiler does not fold one such test into the one before it.
+__device__ __forceinline__ void block_fence(int n) {
+  asm volatile("" : "+r"(n));
+  if (n < 0) __trap();
 }
 
 // A 16-byte vector of T (four floats or two doubles) and its elements.
@@ -162,9 +231,9 @@ __device__ __forceinline__ bool bulk_ok(const void* p, uint32_t bytes) {
 }
 
 // Copies `count` elements of `src` into the dense stage `dst` (16-byte
-// aligned) for the group and returns once every thread may read them: one
-// TMA bulk copy where allowed, else an element copy.
-template <typename T>
+// aligned) for the group of kGroup threads and returns once every thread
+// may read them: one TMA bulk copy where allowed, else an element copy.
+template <typename T, int kGroup>
 __device__ __forceinline__ void stage_in(T* dst, const T* src, int count,
                                          uint64_t* bar, int t, int bar_id) {
   const uint32_t bytes = (uint32_t)count * sizeof(T);
@@ -183,7 +252,8 @@ __device__ __forceinline__ void stage_in(T* dst, const T* src, int count,
           "l"((uint64_t)(uintptr_t)src), "r"(bytes), "r"(b)
           : "memory");
     }
-    group_sync(bar_id);  // the mbarrier is initialised before anyone waits
+    // The mbarrier is initialised before anyone waits.
+    bar_sync<kGroup>(bar_id);
     uint32_t done = 0;
     do {
       asm volatile(
@@ -198,19 +268,19 @@ __device__ __forceinline__ void stage_in(T* dst, const T* src, int count,
     for (int i = t; i < count; i += kGroup) dst[i] = src[i];
   }
   // Reconverges the warps after the wait, and orders the element copy.
-  group_sync(bar_id);
+  bar_sync<kGroup>(bar_id);
 }
 
 // Copies the dense stage `src`, just written by this group, to `dst`: one
 // TMA bulk store where allowed (stage_out_wait before the group exits),
 // else an element copy.
-template <typename T>
+template <typename T, int kGroup>
 __device__ __forceinline__ void stage_out(T* dst, const T* src, int count,
                                           int t, int bar_id) {
   const uint32_t bytes = (uint32_t)count * sizeof(T);
   if (bulk_ok(dst, bytes)) {
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    group_sync(bar_id);
+    bar_sync<kGroup>(bar_id);
     if (t == 0) {
       asm volatile(
           "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
@@ -219,7 +289,7 @@ __device__ __forceinline__ void stage_out(T* dst, const T* src, int count,
       asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     }
   } else {
-    group_sync(bar_id);
+    bar_sync<kGroup>(bar_id);
     for (int i = t; i < count; i += kGroup) dst[i] = src[i];
   }
 }
@@ -229,15 +299,17 @@ __device__ __forceinline__ void stage_out_wait(int t) {
   if (t == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
-// Row `t` of the dense stage into registers; rows and columns n .. 63 of
-// the identity.  kStrictLower keeps only the strict lower triangle (a
+// Columns kFrom .. kTo - 1 of row `t` of the dense stage into registers;
+// rows and columns n .. kRows - 1 of the identity (a thread past kRows
+// holds zeros).  kStrictLower keeps only the strict lower triangle (a
 // packed factor's L) and zeroes the rest.
-template <typename T, bool kStrictLower>
+template <typename T, int kRows, bool kStrictLower, int kFrom = 0,
+          int kTo = kRows>
 __device__ __forceinline__ void load_row(T (&a)[kRows], const T* s, int n,
                                          int t) {
   const T* src = s + (t < n ? t : n - 1) * n;  // the stage's slack
 #pragma unroll
-  for (int j = 0; j < kRows; ++j) {
+  for (int j = kFrom; j < kTo; ++j) {
     const T v = src[j];
     const bool keep = t < n && j < n && (!kStrictLower || j < t);
     a[j] = keep ? v : (t == j && !kStrictLower ? T(1) : T(0));
@@ -248,7 +320,7 @@ __device__ __forceinline__ void load_row(T (&a)[kRows], const T* s, int n,
 // kBase .. kBase + 31 of its row `a`: y_k = y_k / L_kk on lane k,
 // broadcast, and y_i -= L[i][k] y_k.  Padded rows (y = 0, inverse diagonal
 // 1, row 0) change nothing.
-template <typename T, int kBase>
+template <typename T, int kRows, int kBase>
 __device__ __forceinline__ T forward_substitute(T y, const T (&a)[kRows],
                                                 T inv_diag, int lane) {
 #pragma unroll
@@ -259,30 +331,31 @@ __device__ __forceinline__ T forward_substitute(T y, const T (&a)[kRows],
   return y;
 }
 
-// Back substitution L^T x = y over the 32 rows of one warp, with c[m] =
-// L[m'][i] for the warp's row m' = base + m below row i (else 0): x on
-// lane m, broadcast, and y_i -= L[m'][i] x.  Padded rows (y = 0, inverse
-// diagonal 1, column 0) change nothing.
-template <typename T>
+// Back substitution L^T x = y over the kM rows of a block of one warp,
+// with c[m] = L[m'][i] for the block's row m' = base + m below row i (else
+// 0): x on lane m, broadcast, and y_i -= L[m'][i] x.  Padded rows (y = 0,
+// inverse diagonal 1, column 0) change nothing.
+template <typename T, int kM>
 __device__ __forceinline__ T back_substitute(T y, const T (&c)[32],
                                              T inv_diag, int lane) {
 #pragma unroll
-  for (int m = 31; m >= 0; --m) {
+  for (int m = kM - 1; m >= 0; --m) {
     const T xm = __shfl_sync(0xffffffffu, y * inv_diag, m);
     y = lane == m ? xm : fma(-c[m], xm, y);
   }
   return y;
 }
 
-// y_i -= c[k] x_{32 + k} for k = 31 .. 0 (rows 63 .. 32, in the plain
-// version's order), x read from shared memory with 16-byte broadcast loads.
-template <typename T>
+// y_i -= c[k] x_{base + k} for k = kM - 1 .. 0 (the block's rows from the
+// last, in the plain version's order), x read from shared memory with
+// 16-byte broadcast loads.
+template <typename T, int kM>
 __device__ __forceinline__ T subtract_upper(T y, const T (&c)[32],
                                             const T* xs) {
   using V = typename Vec16<T>::type;
   constexpr int kV = Vec16<T>::kN;
 #pragma unroll
-  for (int q = 32 / kV - 1; q >= 0; --q) {
+  for (int q = kM / kV - 1; q >= 0; --q) {
     const V v = reinterpret_cast<const V*>(xs)[q];
 #pragma unroll
     for (int e = kV - 1; e >= 0; --e) y = fma(-c[q * kV + e], elem(v, e), y);
@@ -290,16 +363,16 @@ __device__ __forceinline__ T subtract_upper(T y, const T (&c)[32],
   return y;
 }
 
-// c[m] = L[base + m][t] for base + m > t, else 0: column t of L from its
-// slot, rows base .. base + 31.
-template <typename T>
+// c[m] = L[base + m][t] for base + m > t, else 0, m < kM: column t of L
+// from its slot, rows base .. base + kM - 1.
+template <typename T, int kM>
 __device__ __forceinline__ void load_column(T (&c)[32], const T* slot,
                                             int base, int t) {
   using V = typename Vec16<T>::type;
   constexpr int kV = Vec16<T>::kN;
   const V* src = reinterpret_cast<const V*>(slot + base);
 #pragma unroll
-  for (int q = 0; q < 32 / kV; ++q) {
+  for (int q = 0; q < kM / kV; ++q) {
     const V v = src[q];
 #pragma unroll
     for (int e = 0; e < kV; ++e) {
@@ -325,7 +398,7 @@ __device__ __forceinline__ void stage_column(T (&c)[32], const T* s,
 
 // One pivot's rank-1 update of row i over the 16-byte vector q of column
 // k: a[i][j] -= l_ik l_jk for its columns j > k.
-template <typename T>
+template <typename T, int kRows>
 __device__ __forceinline__ void rank1(T (&a)[kRows],
                                       const typename Vec16<T>::type& v, T lm,
                                       int k, int q) {
@@ -339,18 +412,17 @@ __device__ __forceinline__ void rank1(T (&a)[kRows],
 
 // Pivots kFirst .. kLast - 1 of the right-looking factor, with the forward
 // substitution L y = g fused in (kSolve), for a row whose columns end
-// before kCols.  Both warps run pivots 0 .. 31 and meet at the group's
-// barrier after each (kGroupSync); warp 0's rows end left of column 32, so
-// it updates columns below 32 only and is done after pivot 31, and warp 1
-// runs pivots 32 .. 63 alone, meeting at __syncwarp().  Column k of the
+// before kCols, the kSync threads of the warps still working meeting at
+// barrier `bar_id` after each (__syncwarp() for one warp).  Column k of the
 // packed factor is final at pivot k and goes into the stage at once (K1,
 // K4), so a[k] is dead from then on.
-template <typename T, bool kEmitFactor, bool kSolve, int kFirst, int kLast,
-          int kCols, bool kGroupSync>
-__device__ __forceinline__ void pivots(T (&a)[kRows], T& y, T& inv,
+template <typename T, class L, bool kEmitFactor, bool kSolve, int kFirst,
+          int kLast, int kCols, int kSync>
+__device__ __forceinline__ void pivots(T (&a)[L::kRows], T& y, T& inv,
                                        T& inv_diag, T* cols, T* srow, int t,
                                        int n, int bar_id) {
   using V = typename Vec16<T>::type;
+  constexpr int kRows = L::kRows;
   constexpr int kV = Vec16<T>::kN;
   constexpr int S = kRows + kV;
 #pragma unroll
@@ -359,16 +431,17 @@ __device__ __forceinline__ void pivots(T (&a)[kRows], T& y, T& inv,
     const bool below = t > k, at = t == k;
     const T lik = a[k] * inv;
     const T lm = below ? lik : T(0);  // l_ik below the pivot, 0 elsewhere
-    col[t] = lm;
+    if (L::kGroup == kRows || t < kRows) col[t] = lm;
     if (kEmitFactor && k < n && t < n && t >= k) srow[k] = at ? inv : lik;
     if (kSolve && at) col[kRows + 1] = y * inv;  // y_k
     inv_diag = at ? inv : inv_diag;
     // Thread k + 1 updates its own diagonal with its own l_{k+1,k} and
-    // publishes the next pivot's inverse beside column k.
-    if (k + 1 < kRows && t == k + 1)
+    // publishes the next pivot's inverse beside column k (not where that
+    // diagonal is a deferred column: deferred_block's shuffle does).
+    if (k + 1 < kRows && t == k + 1 && (!L::kDefer || k + 1 < kCols))
       col[kRows] = clamp_rsqrt(fma(-lm, lm, a[k + 1]));
-    if (kGroupSync)
-      group_sync(bar_id);
+    if (kSync > kWarp)
+      bar_sync<kSync>(bar_id);
     else
       __syncwarp();
     const V ex = reinterpret_cast<const V*>(col + kRows)[0];
@@ -380,97 +453,197 @@ __device__ __forceinline__ void pivots(T (&a)[kRows], T& y, T& inv,
       inv = elem(ex, 0);
       const V* cv = reinterpret_cast<const V*>(col);
 #pragma unroll
-      for (int q = (k + 1) / kV; q < kCols / kV; ++q)
-        rank1<T>(a, cv[q], lm, k, q);
+      for (int q = (k + 1) / kV; q < kCols / kV; ++q) {
+        rank1<T, kRows>(a, cv[q], lm, k, q);
+        if constexpr (L::kChunk > 0) {
+          if ((q + 1) * kV % L::kChunk == 0) block_fence(n);
+        }
+      }
     }
+  }
+}
+
+// The last warp's own block of columns (kLastBase .. kRows - 1), kept
+// out of its registers through the phases before its own (kDefer): loaded
+// from the stage, which still holds them as they came in, then given the
+// terms of pivots 0 .. kLastBase - 1 in that order, l_tk read back from
+// the packed factor's row in the stage and l_jk from slot k: the FMAs of
+// the rank-1 updates the warp skipped, to the bit.  The next pivot's
+// inverse then comes from its diagonal's owner, lane 0, by shuffle.
+template <typename T, class L>
+__device__ __forceinline__ void deferred_block(T (&a)[L::kRows], T& inv,
+                                               const T* cols, const T* s,
+                                               const T* srow, int t, int n) {
+  using V = typename Vec16<T>::type;
+  constexpr int kRows = L::kRows, kBase = L::kLastBase;
+  constexpr int kV = Vec16<T>::kN;
+  constexpr int S = kRows + kV;
+  load_row<T, kRows, false, kBase>(a, s, n, t);
+#pragma unroll
+  for (int k = 0; k < kBase; ++k) {
+    const T lm = t < n ? srow[k] : T(0);  // l_tk; 0 on a padded row
+    const V* cv = reinterpret_cast<const V*>(cols + k * S);
+#pragma unroll
+    for (int q = kBase / kV; q < kRows / kV; ++q)
+      rank1<T, kRows>(a, cv[q], lm, k, q);
+    block_fence(n);
+  }
+  inv = __shfl_sync(0xffffffffu, clamp_rsqrt(a[kBase]), 0);
+}
+
+// Warp kW's pivots: phases kP .. kW, phase p being pivots 32 p .. 32 p +
+// 31 (up to kRows), which warps p .. kWarps - 1 run together, meeting at
+// barrier bar_id + p kWideGroups (of their 32 (kWarps - p) threads) after
+// each.  Warp kW's rows end before column 32 (kW + 1): it updates those
+// columns only, and is done after its own phase.  With kDefer the last
+// warp updates its columns before kLastBase only until its own phase.
+template <typename T, class L, bool kEmitFactor, bool kSolve, int kW,
+          int kP = 0>
+__device__ __forceinline__ void warp_pivots(T (&a)[L::kRows], T& y, T& inv,
+                                            T& inv_diag, T* cols, T* srow,
+                                            const T* s, int t, int n,
+                                            int bar_id) {
+  constexpr bool kDeferring = L::kDefer && kW == L::kWarps - 1 && kP < kW;
+  if constexpr (L::kDefer && kW == L::kWarps - 1 && kP == kW && kP > 0)
+    deferred_block<T, L>(a, inv, cols, s, srow, t, n);
+  pivots<T, L, kEmitFactor, kSolve, kWarp * kP,
+         cmin(kWarp * (kP + 1), L::kRows),
+         kDeferring ? L::kLastBase : cmin(kWarp * (kW + 1), L::kRows),
+         kWarp * (L::kWarps - kP)>(a, y, inv, inv_diag, cols, srow, t, n,
+                                   bar_id + kP * kWideGroups);
+  if constexpr (kP < kW)
+    warp_pivots<T, L, kEmitFactor, kSolve, kW, kP + 1>(
+        a, y, inv, inv_diag, cols, srow, s, t, n, bar_id);
+}
+
+// Each warp to its own pivots, from the last warp (kW) down.
+template <typename T, class L, bool kEmitFactor, bool kSolve, int kW>
+__device__ __forceinline__ void all_pivots(T (&a)[L::kRows], T& y, T& inv,
+                                           T& inv_diag, T* cols, T* srow,
+                                           const T* s, int t, int n,
+                                           int bar_id) {
+  if constexpr (kW == 0) {
+    warp_pivots<T, L, kEmitFactor, kSolve, 0>(a, y, inv, inv_diag, cols,
+                                              srow, s, t, n, bar_id);
+  } else {
+    if (t >= kWarp * kW) {
+      warp_pivots<T, L, kEmitFactor, kSolve, kW>(a, y, inv, inv_diag, cols,
+                                                 srow, s, t, n, bar_id);
+    } else {
+      all_pivots<T, L, kEmitFactor, kSolve, kW - 1>(
+          a, y, inv, inv_diag, cols, srow, s, t, n, bar_id);
+    }
+  }
+}
+
+// Back substitution L^T x = y, blocks kS .. 0 (block s: rows 32 s ..
+// 32 s + 31, warp s's).  Warp kS solves its block by shuffles once the x
+// of every block below it is subtracted, and publishes x in xs; after the
+// group's barrier the warps above it subtract that x, each with column t
+// of L read from its slot (`mine`) before the barrier.
+template <typename T, class L, int kS>
+__device__ __forceinline__ void back_blocks(T& y, T (&c)[32], const T* mine,
+                                            T* xs, T inv_diag, int lane,
+                                            int t, int bar_id) {
+  constexpr int kM = cmin(kWarp, L::kRows - kWarp * kS);  // the block's rows
+  if constexpr (kS == 0) {
+    if (t < kWarp) {
+      load_column<T, kM>(c, mine, 0, t);
+      y = back_substitute<T, kM>(y, c, inv_diag, lane);
+    }
+  } else {
+    const bool top = kS == L::kWarps - 1;  // no warp below this block's
+    if (top || t < kWarp * (kS + 1)) load_column<T, kM>(c, mine, kWarp * kS, t);
+    if (t >= kWarp * kS && (top || t < kWarp * (kS + 1))) {
+      y = back_substitute<T, kM>(y, c, inv_diag, lane);
+      xs[kWarp * (kS - 1) + lane] = y;
+    }
+    bar_sync<L::kGroup>(bar_id);
+    if (t < kWarp * kS) y = subtract_upper<T, kM>(y, c, xs + kWarp * (kS - 1));
+    back_blocks<T, L, kS - 1>(y, c, mine, xs, inv_diag, lane, t, bar_id);
   }
 }
 
 // K1 (kEmitFactor, kSolve): solve + packed factor; K3 (kSolve): the solve
 // alone; K4 (kEmitFactor): the packed factor alone, no rhs read and no x
-// written.
-template <typename T, bool kEmitFactor, bool kSolve>
-__global__ void __launch_bounds__(kWideGroups * kGroup)
+// written.  A matrix of at most kRows rows over kWarps warps.
+template <typename T, int kRows, int kWarps, bool kEmitFactor, bool kSolve>
+__global__ void __launch_bounds__(kWideGroups * kWarps * kWarp)
     cholesky_wide_solve_factor(const T* __restrict__ a_in,
                                const T* __restrict__ g_in,
                                T* __restrict__ x_out, T* __restrict__ fac_out,
                                int64_t batch, int n) {
-  constexpr int S = kRows + Vec16<T>::kN;  // wide_col_stride(sizeof(T))
+  using L = Layout<kRows, kWarps, (kRows > 64 && sizeof(T) == 8)>;
+  static_assert(!L::kDefer || kEmitFactor,
+                "deferred_block reads l_tk back from the packed factor");
+  constexpr int kGroup = L::kGroup;
+  constexpr int S = kRows + Vec16<T>::kN;  // wide_col_stride(kRows, sizeof(T))
   constexpr int kMode = !kSolve ? MODE_FACTOR
                         : kEmitFactor ? MODE_SOLVE_FACTOR
                                       : MODE_SOLVE;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int t = threadIdx.x & (kGroup - 1);
+  const int t = threadIdx.x % kGroup;
   const int lane = threadIdx.x & (kWarp - 1);
-  const bool upper_warp = t >= kWarp;  // rows 32 .. 63
   const int group = threadIdx.x / kGroup;
   const int bar_id = 1 + group;  // barrier 0 is __syncthreads'
   const int64_t mat = (int64_t)blockIdx.x * (blockDim.x / kGroup) + group;
   if (mat >= batch) return;  // the whole group exits together
+  DEX_STAMP(mat, t / kWarp, lane, 0);
 
   unsigned char* base =
-      smem_raw + (size_t)group * wide_group_smem_bytes(n, sizeof(T), kMode);
+      smem_raw + (size_t)group * wide_group_smem_bytes(kRows, kWarps, n,
+                                                       sizeof(T), kMode);
   T* cols = reinterpret_cast<T*>(base + 16);  // slot k at cols + k S
   T* xs = cols + kRows * S;
-  T* s = kEmitFactor ? xs + 32 : cols;
+  T* s = kEmitFactor ? xs + kWarp * (kWarps - 1) : cols;
   const int64_t nn = (int64_t)n * n;
   // Loaded first: its latency overlaps the matrix's copy.
   T y = kSolve && t < n ? g_in[mat * n + t] : T(0);
-  stage_in(s, a_in + mat * nn, n * n, reinterpret_cast<uint64_t*>(base), t,
-           bar_id);
+  stage_in<T, kGroup>(s, a_in + mat * nn, n * n,
+                      reinterpret_cast<uint64_t*>(base), t, bar_id);
   T a[kRows];
-  load_row<T, false>(a, s, n, t);
+  load_row<T, kRows, false, 0, L::kLoadCols>(a, s, n, t);
   T inv = clamp_rsqrt(s[0]);
-  group_sync(bar_id);  // every row is in registers: the slots may be written
+  // Every row is in registers: the slots may be written.
+  bar_sync<kGroup>(bar_id);
+  DEX_STAMP(mat, t / kWarp, lane, 1);
 
   T* srow = s + (t < n ? t : 0) * n;
   T inv_diag = T(1);
-  if (upper_warp) {
-    pivots<T, kEmitFactor, kSolve, 0, kWarp, kRows, true>(
-        a, y, inv, inv_diag, cols, srow, t, n, bar_id);
-    pivots<T, kEmitFactor, kSolve, kWarp, kRows, kRows, false>(
-        a, y, inv, inv_diag, cols, srow, t, n, bar_id);
-  } else {
-    pivots<T, kEmitFactor, kSolve, 0, kWarp, kWarp, true>(
-        a, y, inv, inv_diag, cols, srow, t, n, bar_id);
-  }
+  all_pivots<T, L, kEmitFactor, kSolve, kWarps - 1>(a, y, inv, inv_diag, cols,
+                                                    srow, s, t, n, bar_id);
+  DEX_STAMP(mat, t / kWarp, lane, 2);
 
   // The stage now holds the packed factor: out with one bulk store.
-  if (kEmitFactor) stage_out(fac_out + mat * nn, s, n * n, t, bar_id);
+  if (kEmitFactor)
+    stage_out<T, kGroup>(fac_out + mat * nn, s, n * n, t, bar_id);
 
   if constexpr (kSolve) {
-    // Back substitution L^T x = y.  Rows 32 .. 63 first, within warp 1;
-    // their x reaches warp 0 through shared memory.
-    const T* mine = cols + t * S;  // column t of L
+    // Back substitution L^T x = y, blocked by warp from the last; x of a
+    // block reaches the warps above it through shared memory.
+    const T* mine = cols + (kGroup == kRows || t < kRows ? t : 0) * S;
     T c[32];
-    load_column<T>(c, mine, 32, t);
-    if (upper_warp) {
-      y = back_substitute<T>(y, c, inv_diag, lane);
-      xs[lane] = y;
-    }
-    group_sync(bar_id);
-    if (!upper_warp) {
-      y = subtract_upper<T>(y, c, xs);
-      load_column<T>(c, mine, 0, t);
-      y = back_substitute<T>(y, c, inv_diag, lane);
-    }
+    back_blocks<T, L, kWarps - 1>(y, c, mine, xs, inv_diag, lane, t, bar_id);
     if (t < n) x_out[mat * n + t] = y;
   }
   if (kEmitFactor) stage_out_wait(t);
+  DEX_STAMP(mat, t / kWarp, lane, 3);
 }
 
 // K2: resolve against a packed factor staged in shared memory: row i of L
 // in registers for the forward pass, column i read down the stage for the
 // backward pass.  Only the strict lower triangle and the diagonal are
 // read.  `xs` carries y of rows 0 .. 31 to warp 1, then x of rows
-// 32 .. 63 to warp 0.
+// 32 .. 63 to warp 0.  The 64-row layout only.
 template <typename T>
-__global__ void __launch_bounds__(kWideGroups * kGroup)
+__global__ void __launch_bounds__(kWideGroups * 2 * kWarp)
     cholesky_wide_resolve(const T* __restrict__ fac_in,
                           const T* __restrict__ g_in, T* __restrict__ x_out,
                           int64_t batch, int n) {
   using V = typename Vec16<T>::type;
   constexpr int kV = Vec16<T>::kN;
+  constexpr int kRows = 64;
+  constexpr int kGroup = 2 * kWarp;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int t = threadIdx.x & (kGroup - 1);
   const int lane = threadIdx.x & (kWarp - 1);
@@ -481,26 +654,26 @@ __global__ void __launch_bounds__(kWideGroups * kGroup)
   if (mat >= batch) return;
 
   unsigned char* base =
-      smem_raw +
-      (size_t)group * wide_group_smem_bytes(n, sizeof(T), MODE_RESOLVE);
+      smem_raw + (size_t)group * wide_group_smem_bytes(kRows, 2, n, sizeof(T),
+                                                       MODE_RESOLVE);
   T* xs = reinterpret_cast<T*>(base + 16);
   T* s = xs + 32;
   // Loaded first: its latency overlaps the factor's copy.
   T y = t < n ? g_in[mat * n + t] : T(0);
-  stage_in(s, fac_in + mat * (int64_t)n * n, n * n,
-           reinterpret_cast<uint64_t*>(base), t, bar_id);
+  stage_in<T, kGroup>(s, fac_in + mat * (int64_t)n * n, n * n,
+                      reinterpret_cast<uint64_t*>(base), t, bar_id);
   T a[kRows];
-  load_row<T, true>(a, s, n, t);
+  load_row<T, kRows, true>(a, s, n, t);
   const T inv_diag = t < n ? s[t * n + t] : T(1);
 
   // Forward substitution L y = g: rows 0 .. 31 within warp 0, published;
   // warp 1 subtracts them (k = 0 .. 31, in the plain version's order) and
   // solves its own block.
   if (!upper_warp) {
-    y = forward_substitute<T, 0>(y, a, inv_diag, lane);
+    y = forward_substitute<T, kRows, 0>(y, a, inv_diag, lane);
     xs[lane] = y;
   }
-  group_sync(bar_id);
+  bar_sync<kGroup>(bar_id);
   if (upper_warp) {
 #pragma unroll
     for (int q = 0; q < 32 / kV; ++q) {
@@ -508,7 +681,7 @@ __global__ void __launch_bounds__(kWideGroups * kGroup)
 #pragma unroll
       for (int e = 0; e < kV; ++e) y = fma(-a[q * kV + e], elem(v, e), y);
     }
-    y = forward_substitute<T, kWarp>(y, a, inv_diag, lane);
+    y = forward_substitute<T, kRows, kWarp>(y, a, inv_diag, lane);
   }
 
   // Back substitution L^T x = y, blocked as K1's.  Warp 1's reads of xs
@@ -516,14 +689,14 @@ __global__ void __launch_bounds__(kWideGroups * kGroup)
   T c[32];
   stage_column<T>(c, s, 32, n, t);
   if (upper_warp) {
-    y = back_substitute<T>(y, c, inv_diag, lane);
+    y = back_substitute<T, 32>(y, c, inv_diag, lane);
     xs[lane] = y;
   }
-  group_sync(bar_id);
+  bar_sync<kGroup>(bar_id);
   if (!upper_warp) {
-    y = subtract_upper<T>(y, c, xs);
+    y = subtract_upper<T, 32>(y, c, xs);
     stage_column<T>(c, s, 0, n, t);
-    y = back_substitute<T>(y, c, inv_diag, lane);
+    y = back_substitute<T, 32>(y, c, inv_diag, lane);
   }
   if (t < n) x_out[mat * n + t] = y;
 }
@@ -536,36 +709,56 @@ cudaError_t allow_smem(KernelT kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// Launches mode `mode` in the layout of kRows rows over kWarps warps:
+// every mode at kRows = 64, K1 and K4 at kRows = 80.
+template <typename T, int kRows, int kWarps>
+int launch_wide(int mode, const void* a, const void* g, void* x, void* fac,
+                int64_t batch, int n, int groups, cudaStream_t st) {
+  const size_t smem =
+      (size_t)groups *
+      wide_group_smem_bytes(kRows, kWarps, n, sizeof(T), mode);
+  const int64_t blocks = (batch + groups - 1) / groups;
+  const dim3 grid((unsigned)blocks), block(groups * kWarps * kWarp);
+  if (mode == MODE_RESOLVE) {
+    if constexpr (kRows == 64) {
+      auto kernel = cholesky_wide_resolve<T>;
+      const cudaError_t err = allow_smem(kernel, smem);
+      if (err != cudaSuccess) return (int)err;
+      kernel<<<grid, block, smem, st>>>((const T*)a, (const T*)g, (T*)x,
+                                        batch, n);
+      return (int)cudaGetLastError();
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  auto kernel = cholesky_wide_solve_factor<T, kRows, kWarps, true, true>;
+  if (mode == MODE_FACTOR) {
+    kernel = cholesky_wide_solve_factor<T, kRows, kWarps, true, false>;
+  } else if (mode == MODE_SOLVE) {
+    if constexpr (kRows == 64)
+      kernel = cholesky_wide_solve_factor<T, kRows, kWarps, false, true>;
+    else
+      return (int)cudaErrorInvalidValue;
+  }
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, block, smem, st>>>((const T*)a, (const T*)g, (T*)x, (T*)fac,
+                                    batch, n);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int dispatch_wide(int mode, const void* a, const void* g, void* x, void* fac,
                   int64_t batch, int n, int groups, void* stream) {
-  if (mode < MODE_SOLVE || mode > MODE_FACTOR || n < 1 || n > kRows ||
+  const int max_n =
+      mode == MODE_SOLVE_FACTOR || mode == MODE_FACTOR ? 80 : 64;
+  if (mode < MODE_SOLVE || mode > MODE_FACTOR || n < 1 || n > max_n ||
       groups != kWideGroups)
     return (int)cudaErrorInvalidValue;
   if (batch <= 0) return (int)cudaSuccess;
-  const size_t smem =
-      (size_t)groups * wide_group_smem_bytes(n, sizeof(T), mode);
-  const int64_t blocks = (batch + groups - 1) / groups;
-  const dim3 grid((unsigned)blocks), block(groups * kGroup);
   cudaStream_t st = (cudaStream_t)stream;
-  if (mode != MODE_RESOLVE) {
-    auto kernel = mode == MODE_SOLVE_FACTOR
-                      ? cholesky_wide_solve_factor<T, true, true>
-                  : mode == MODE_FACTOR
-                      ? cholesky_wide_solve_factor<T, true, false>
-                      : cholesky_wide_solve_factor<T, false, true>;
-    const cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<grid, block, smem, st>>>((const T*)a, (const T*)g, (T*)x,
-                                      (T*)fac, batch, n);
-  } else {
-    auto kernel = cholesky_wide_resolve<T>;
-    const cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<grid, block, smem, st>>>((const T*)a, (const T*)g, (T*)x,
-                                      batch, n);
-  }
-  return (int)cudaGetLastError();
+  if (n <= 64)
+    return launch_wide<T, 64, 2>(mode, a, g, x, fac, batch, n, groups, st);
+  return launch_wide<T, 80, 3>(mode, a, g, x, fac, batch, n, groups, st);
 }
 
 }  // namespace
@@ -573,12 +766,13 @@ int dispatch_wide(int mode, const void* a, const void* g, void* x, void* fac,
 extern "C" {
 
 // mode: 0 solve (K3), 1 solve + packed factor (K1), 2 resolve against a
-// packed factor (K2), 3 packed factor (K4); 1 <= n <= 64; groups: matrices
-// (two warps each) per block, kWideGroups (2).  elem_bytes: 4 (float) or 8
-// (double).  a: (batch, n, n) matrices or packed factors; g: (batch, n)
-// (unused in mode 3); x: (batch, n) out (unused in mode 3); fac:
-// (batch, n, n) out (modes 1 and 3, else unused).  Returns the cudaError_t
-// of the launch (0 on success).
+// packed factor (K2), 3 packed factor (K4); 1 <= n <= 64, and up to 80 in
+// modes 1 and 3; groups: matrices per block, kWideGroups (2), of two warps
+// each at n <= 64 and three above.  elem_bytes: 4 (float) or 8 (double).
+// a: (batch, n, n) matrices or packed factors; g: (batch, n) (unused in
+// mode 3); x: (batch, n) out (unused in mode 3); fac: (batch, n, n) out
+// (modes 1 and 3, else unused).  Returns the cudaError_t of the launch (0
+// on success).
 int dex_cholesky_wide(int mode, int elem_bytes, const void* a, const void* g,
                       void* x, void* fac, int64_t batch, int n, int groups,
                       void* stream) {
@@ -589,5 +783,12 @@ int dex_cholesky_wide(int mode, int elem_bytes, const void* a, const void* g,
                                  stream);
   return (int)cudaErrorInvalidValue;
 }
+
+#ifdef DEX_PHASE_CLOCKS
+// Points the kernels' cycle stamps at `clocks`, (batch, 4, 4) int64.
+int dex_phase_clocks(void* clocks) {
+  return (int)cudaMemcpyToSymbol(g_phase_clocks, &clocks, sizeof(clocks));
+}
+#endif
 
 }  // extern "C"

@@ -1,5 +1,5 @@
-"""Arenas (port of dexterity_tpu/models/arenas.py: Standard, attach,
-add_free_entity, add_mocap)."""
+"""Arenas (port of dexterity_tpu/models/arenas.py: Standard, attach and
+its alias attach_offset, add_free_entity, add_mocap)."""
 
 from __future__ import annotations
 
@@ -25,6 +25,9 @@ class Arena:
     prefix = f'{entity.name}/' if prefix is None else prefix
     self.spec.attach(entity.spec, prefix=prefix, pos=pos, quat=quat)
     return prefix
+
+  # The reference's name for it (dexterity/models/arenas/arena.py:47-63).
+  attach_offset = attach
 
   def add_free_entity(self, entity, prefix: Optional[str] = None) -> str:
     """Attaches an entity with a free joint on its root body."""

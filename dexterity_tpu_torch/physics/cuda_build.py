@@ -48,6 +48,12 @@ def _nvcc() -> str:
   raise RuntimeError('nvcc not found: the CUDA kernels cannot be built')
 
 
+def _nvcc_cmd(src: Path, out: Path, *flags: str) -> list:
+  return [_nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+          '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v', *flags,
+          '-o', str(out), str(src)]
+
+
 def _digest(srcs: Dict[str, Path]) -> str:
   h = hashlib.sha256()
   for name, path in srcs.items():
@@ -72,10 +78,8 @@ def build_all() -> Dict[str, ctypes.CDLL]:
       if so.exists():
         continue
       tmp = so.with_suffix(f'.{os.getpid()}.tmp')
-      cmd = [_nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a',
-             '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC',
-             '-Xptxas', '-v', '-o', str(tmp), str(src)]
-      procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+      procs[name] = (subprocess.Popen(_nvcc_cmd(src, tmp),
+                                      stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True),
                      tmp, so)
     failed = []
@@ -103,6 +107,26 @@ def build_all() -> Dict[str, ctypes.CDLL]:
 def library(name: str) -> ctypes.CDLL:
   """The loaded library built from `csrc/<name>.cu`."""
   return build_all()[name]
+
+
+def variant(name: str, define: str) -> ctypes.CDLL:
+  """`csrc/<name>.cu` built with the macro `define` set, into a library
+  of its own beside the set's (`libdex_<name>.<define>.so`): a
+  measurement build of the same source, which leaves the kernels' own
+  libraries as they are.  Raises if nvcc fails."""
+  build_all()
+  so = Path(build_info['dir']) / f'libdex_{name}.{define}.so'
+  with _lock:
+    if not so.exists():
+      tmp = so.with_suffix(f'.{os.getpid()}.tmp')
+      proc = subprocess.run(_nvcc_cmd(sources()[name], tmp, f'-D{define}'),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+      if proc.returncode != 0:
+        raise RuntimeError(f'nvcc failed for {name} with {define} '
+                           f'(rc {proc.returncode}):\n{proc.stdout}')
+      os.replace(tmp, so)
+    return ctypes.CDLL(str(so))
 
 
 def launch(fn, device: torch.device, *args) -> int:

@@ -45,15 +45,18 @@ suite's (4096, 62, 62) K3's FMAs set the bound instead.  Three designs
                solve (K2, substitutions blocked by warp); the juggle
                environment's and the suite's K3 (n = 62) run it, and K2
                wherever a refactoring Newton solve meets the juggle model.
+               K1 and K4 also at 64 < n <= 80, three warps per matrix (a
+               96-thread barrier for pivots 0-31, a 64-thread one for
+               32-63, the last warp alone after).
   'shared'     `csrc/cholesky.cu`: one warp per matrix, the matrix in
-               shared memory, one __syncwarp() per pivot: every mode
-               beyond n = 64 (no model of the repository reaches it), and
-               the in-run yardstick at any n (`_launch(...,
-               design='shared')`).
+               shared memory, one __syncwarp() per pivot: K2 and K3
+               beyond n = 64, K1 and K4 beyond n = 80 (no model of the
+               repository reaches either), and the in-run yardstick at
+               any n (`_launch(..., design='shared')`).
 
 `_design(n, dtype, mode)` picks every kernel's design from the shape, type
-and mode alone (every design has every mode, so today n and the type
-decide); no switch overrides it on the public wrappers.
+and mode alone (above n = 64 the mode decides between the wide and the
+shared design); no switch overrides it on the public wrappers.
 `_launch(..., design=...)` runs any design at the inputs it takes, so a
 card run can time the shared design beside the one `_design` picks.
 
@@ -101,14 +104,16 @@ _MODE_FACTOR = 3
 # Largest n of the register design: one row per lane.  (Its code with two
 # rows per lane, n <= 64, spills K1 in both types; see cholesky_regs.cu.)
 _REG_MAX_N = 32
-# Largest n of the wide design (a row per thread over two warps).  Every
-# design has every mode; the shared design has every n.
-_WIDE_MAX_N = 64
+# Largest n of the wide design, by mode: a row per thread over two warps
+# up to 64 (every mode), over three warps up to 80 (K1 and K4).  The
+# shared design has every mode at every n.
+_WIDE_MAX_N = {_MODE_SOLVE: 64, _MODE_SOLVE_FACTOR: 80, _MODE_RESOLVE: 64,
+               _MODE_FACTOR: 80}
 
 # Shared memory one block may use on Hopper (227 KB).
 _MAX_SMEM = 232448
 # Matrices per block: a warp each, up to four as fit ('registers',
-# 'shared'); two warps each, exactly two ('wide': kWideGroups in
+# 'shared'); two or three warps each, exactly two ('wide': kWideGroups in
 # cholesky_wide.cu; ptxas reserves all 16 named barriers for its kernel,
 # which caps an SM at 4 blocks).
 _PER_BLOCK = {'registers': 4, 'shared': 4, 'wide': 2}
@@ -128,23 +133,28 @@ def reset_launches() -> None:
     launches[k] = 0
 
 
+def _bind(fn):
+  """Sets the C signature every design's entry shares: (mode, elem_bytes,
+  a, g, x, fac, batch, n, per_block, stream) -> cudaError_t."""
+  fn.restype = ctypes.c_int
+  fn.argtypes = [
+      ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+      ctypes.c_int, ctypes.c_void_p]
+  return fn
+
+
 def build() -> dict:
   """Builds (if a source changed) and loads the three kernel libraries;
   later calls return their entry points without a lock (cuda_build holds
   one over the build).  'shared': csrc/cholesky.cu, 'registers':
   csrc/cholesky_regs.cu, 'wide': csrc/cholesky_wide.cu; the three take
-  the same arguments."""
+  the same arguments (`_bind`)."""
   if not _fns:
-    fns = {'shared': cuda_build.library('cholesky').dex_cholesky,
-           'registers': cuda_build.library('cholesky_regs').dex_cholesky_regs,
-           'wide': cuda_build.library('cholesky_wide').dex_cholesky_wide}
-    for fn in fns.values():
-      fn.restype = ctypes.c_int
-      fn.argtypes = [
-          ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-          ctypes.c_int, ctypes.c_void_p]
-    _fns.update(fns)
+    _fns.update(
+        shared=_bind(cuda_build.library('cholesky').dex_cholesky),
+        registers=_bind(cuda_build.library('cholesky_regs').dex_cholesky_regs),
+        wide=_bind(cuda_build.library('cholesky_wide').dex_cholesky_wide))
   return _fns
 
 
@@ -154,7 +164,7 @@ def _design(n: int, dtype: torch.dtype, mode: int) -> str:
   if dtype in (torch.float32, torch.float64):
     if 1 <= n <= _REG_MAX_N:
       return 'registers'
-    if _REG_MAX_N < n <= _WIDE_MAX_N:
+    if _REG_MAX_N < n <= _WIDE_MAX_N[mode]:
       return 'wide'
   return 'shared'
 
@@ -168,11 +178,12 @@ def _matrix_smem_bytes(n: int, elem_bytes: int, design: str,
     cols = 32 * (32 + 16 // elem_bytes) * elem_bytes
     return 16 + cols + ((n * n + 32) * elem_bytes + 15) // 16 * 16
   if design == 'wide':
+    rows, warps = (64, 2) if n <= 64 else (80, 3)
     cols = (0 if mode == _MODE_RESOLVE
-            else 64 * (64 + 16 // elem_bytes) * elem_bytes)
+            else rows * (rows + 16 // elem_bytes) * elem_bytes)
     stage = (0 if mode == _MODE_SOLVE
-             else ((n * n + 64) * elem_bytes + 15) // 16 * 16)
-    return 16 + cols + 32 * elem_bytes + stage
+             else ((n * n + rows) * elem_bytes + 15) // 16 * 16)
+    return 16 + cols + 32 * (warps - 1) * elem_bytes + stage
   return (n * (n | 1) + n) * elem_bytes
 
 
@@ -219,7 +230,7 @@ def _launch(mode: int, name: str, a: torch.Tensor, g=None,
     design = _design(n, a.dtype, mode)
   elif design == 'registers' and not 1 <= n <= _REG_MAX_N:
     raise ValueError(f'{name}: no register design at n={n}, {a.dtype}')
-  elif design == 'wide' and not 1 <= n <= _WIDE_MAX_N:
+  elif design == 'wide' and not 1 <= n <= _WIDE_MAX_N[mode]:
     raise ValueError(f'{name}: no wide design at n={n}')
   elem = a.element_size()
   per_matrix = _matrix_smem_bytes(n, elem, design, mode)

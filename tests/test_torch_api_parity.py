@@ -7,11 +7,15 @@ JAX module is bound at the top level of its port counterpart.  A public
 name is a function, a class or an assigned name (plain or annotated) not
 starting with `_`, and, in a package's `__init__.py`, a name it imports
 from the package itself.  `EXCEPTIONS` lists the names the port has no
-counterpart for, each with its reason.  The audit runs one way: the port's
-own extra modules and names are allowed.
+counterpart for, each with its reason.  Every class that a JAX module and
+its port both define has each public member of the JAX class (a method, a
+class attribute or an annotated field, bound in the class body) in the
+port's class, except `MEMBER_EXCEPTIONS`.  The audit runs one way: the
+port's own extra modules, names and members are allowed.
 """
 
 import ast
+import functools
 import os
 
 import pytest
@@ -30,6 +34,17 @@ EXCEPTIONS = {
         'JAX pytree registration; the port uses frozen dataclasses',
     ('utils/structs.py', 'static_field'):
         'JAX pytree registration of a static field; the port has no pytrees',
+}
+
+
+# (JAX module, class, member) -> why the port's class has no such member.
+MEMBER_EXCEPTIONS = {
+    ('environment.py', 'EnvState', 'key'):
+        'the port passes a torch.Generator to each call; its state carries '
+        'no key',
+    ('planners/predictive_sampling.py', 'PredictiveSamplingConfig',
+     'rollout_unroll'):
+        "an XLA scan-unroll factor; the port's rollouts are an eager loop",
 }
 
 
@@ -90,6 +105,7 @@ def _imported(tree, package=None):
   return out
 
 
+@functools.lru_cache(maxsize=None)
 def _parse(path):
   with open(path) as f:
     return ast.parse(f.read(), path)
@@ -133,3 +149,52 @@ def test_exceptions_stay_true(rel, name):
   assert EXCEPTIONS[(rel, name)]
   assert name in _public_jax_names(rel)
   assert name not in _port_names(rel)
+
+
+def _classes(path):
+  """The classes a module defines at its top level, by name."""
+  return {node.name: node for node in _statements(_parse(path).body)
+          if isinstance(node, ast.ClassDef)}
+
+
+def _members(cls):
+  """The public names a class body binds: methods, nested classes, class
+  attributes and annotated fields."""
+  return {n for n in _defined(cls) if not n.startswith('_')}
+
+
+def _shared_classes():
+  out = []
+  for rel in _MODULES:
+    path = _port_path(rel)
+    if os.path.isfile(path):
+      port = _classes(path)
+      out += [(rel, name) for name in _classes(os.path.join(_JAX, rel))
+              if name in port]
+  return out
+
+
+_SHARED_CLASSES = _shared_classes()
+
+
+def test_the_shared_classes_are_read():
+  assert len(_SHARED_CLASSES) > 90
+  assert ('models/arenas.py', 'Arena') in _SHARED_CLASSES
+
+
+@pytest.mark.parametrize('rel,cls', _SHARED_CLASSES)
+def test_class_members_are_ported(rel, cls):
+  """The port's class binds each public member of the JAX class."""
+  excepted = {m for (mod, c, m) in MEMBER_EXCEPTIONS if (mod, c) == (rel, cls)}
+  missing = (_members(_classes(os.path.join(_JAX, rel))[cls]) - excepted -
+             _members(_classes(_port_path(rel))[cls]))
+  assert not missing, f'{rel} {cls}: not in the port: {sorted(missing)}'
+
+
+@pytest.mark.parametrize('rel,cls,member', sorted(MEMBER_EXCEPTIONS))
+def test_member_exceptions_stay_true(rel, cls, member):
+  """An excepted member is a public member of its JAX class and is absent
+  from the port's class, so the list cannot go stale."""
+  assert MEMBER_EXCEPTIONS[(rel, cls, member)]
+  assert member in _members(_classes(os.path.join(_JAX, rel))[cls])
+  assert member not in _members(_classes(_port_path(rel))[cls])

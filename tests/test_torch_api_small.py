@@ -1,7 +1,7 @@
 """The port's small public helpers against the JAX package's (CPU,
 float64): the workspace sites, the `MujocoEffector` alias, the identity
-quaternion, the plane helpers of the narrow phase and the rank-polymorphic
-Cholesky names."""
+quaternion, the plane helpers of the narrow phase, the rank-polymorphic
+Cholesky names and the `Arena.attach_offset` alias."""
 
 import dataclasses
 
@@ -11,15 +11,19 @@ import numpy as np
 import pytest
 import torch
 
+from dexterity_tpu.core import serialization as jser
 from dexterity_tpu.core import spec as jspec
 from dexterity_tpu.manipulation.shared import workspaces as jws
+from dexterity_tpu.models import arenas as jarenas
 from dexterity_tpu.physics import linalg_pallas as LP
 from dexterity_tpu.physics import math as jmath
 from dexterity_tpu.physics.collision import soa as jsoa
 from dexterity_tpu_torch import effectors
+from dexterity_tpu_torch.core import serialization as pser
 from dexterity_tpu_torch.core import spec as pspec
 from dexterity_tpu_torch.effectors import mujoco_actuation
 from dexterity_tpu_torch.manipulation.shared import workspaces as pws
+from dexterity_tpu_torch.models import arenas as parenas
 from dexterity_tpu_torch.physics import linalg_cuda as LC
 from dexterity_tpu_torch.physics import math as pmath
 from dexterity_tpu_torch.physics.collision import soa as psoa
@@ -122,3 +126,31 @@ def test_rank_polymorphic_cholesky_names_match_jax(batch):
   for ref in (solve(hj, gj),
               LP.cholesky_resolve_b(LP.cholesky_factor_b(hj), gj)):
     np.testing.assert_allclose(x, np.asarray(ref), rtol=0, atol=1e-10)
+
+
+class _Entity:
+  """An entity as the arenas take one: a spec with one body and a geom."""
+
+  def __init__(self, spec_mod, name):
+    self.name = name
+    self.spec = spec_mod.ModelSpec(name=name)
+    body = self.spec.worldbody.add_body('root', pos=np.array([0.0, 0.1, 0.2]))
+    body.add_geom('box', type=spec_mod.GeomType.BOX,
+                  size=np.array([0.01, 0.02, 0.03]))
+
+
+def test_arena_attach_offset_is_attach():
+  """`Arena.attach_offset` is `attach` in both packages (the reference's
+  name), and attaching an entity by it at an offset gives the JAX
+  package's spec (as `spec_to_dict` writes it) and prefix."""
+  assert parenas.Arena.attach_offset is parenas.Arena.attach
+  assert jarenas.Arena.attach_offset is jarenas.Arena.attach
+  out = {}
+  for key, arenas, spec_mod, ser in (('jax', jarenas, jspec, jser),
+                                     ('port', parenas, pspec, pser)):
+    arena = arenas.Standard()
+    prefix = arena.attach_offset(_Entity(spec_mod, 'cube'), pos=(0.1, 0, 0.3),
+                                 quat=(0.0, 1.0, 0.0, 0.0))
+    out[key] = (prefix, ser.spec_to_dict(arena.spec))
+  assert out['port'][0] == out['jax'][0] == 'cube/'
+  assert out['port'][1] == out['jax'][1]

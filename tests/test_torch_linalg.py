@@ -46,11 +46,12 @@ def _t(x):
   return torch.as_tensor(x, dtype=torch.float64)
 
 
-# The last five sit on the boundaries of the kernels' register design
+# The last seven sit on the boundaries of the kernels' register design
 # (n <= 32, a row per lane) and of the wide design (n <= 64, a row per
-# thread over two warps), and at the juggle model's n = 62.
+# thread over two warps; K1 and K4 up to 80 over three), at the juggle
+# model's n = 62, and at 80, the top of the JAX package's Pallas range.
 _SHAPES = [((7,), 10), ((3, 5), 8), ((4,), 30), ((2,), 1), ((2,), 32),
-           ((2,), 33), ((2,), 64), ((2,), 62)]
+           ((2,), 33), ((2,), 64), ((2,), 62), ((2,), 65), ((2,), 80)]
 
 
 @pytest.mark.parametrize('batch,n', _SHAPES)
@@ -175,6 +176,15 @@ _K1, _K2, _K3, _K4 = (LC._MODE_SOLVE_FACTOR, LC._MODE_RESOLVE, LC._MODE_SOLVE,
                       LC._MODE_FACTOR)
 
 
+def _for_mode(want, n, dtype, mode):
+  """K2's and K3's design `want` at (n, dtype), as K1 and K4 take it:
+  the wide design at 64 < n <= 80 (three warps a matrix) too."""
+  if (mode in (_K1, _K4) and dtype in (torch.float32, torch.float64) and
+      64 < n <= 80):
+    return 'wide'
+  return want
+
+
 @pytest.mark.parametrize('n,dtype,want', [
     (1, torch.float32, 'registers'), (30, torch.float32, 'registers'),
     (32, torch.float32, 'registers'), (33, torch.float32, 'wide'),
@@ -185,13 +195,16 @@ _K1, _K2, _K3, _K4 = (LC._MODE_SOLVE_FACTOR, LC._MODE_RESOLVE, LC._MODE_SOLVE,
     (0, torch.float32, 'shared'), (30, torch.float16, 'shared'),
     (62, torch.float32, 'wide'), (62, torch.float64, 'wide'),
     (65, torch.float32, 'shared'), (65, torch.float64, 'shared'),
-    (62, torch.float16, 'shared')])
+    (62, torch.float16, 'shared'), (80, torch.float64, 'shared'),
+    (81, torch.float32, 'shared'), (81, torch.float64, 'shared')])
 @pytest.mark.parametrize('mode', [_K1, _K2, _K3, _K4])
 def test_design_rule(n, dtype, want, mode):
   """Each kernel's design follows from (n, dtype, mode) alone: for every
-  mode the register design at n <= 32, the wide design at 32 < n <= 64
-  and the shared design above 64."""
-  assert LC._design(n, dtype, mode) == want
+  mode the register design at n <= 32 and the wide design at 32 < n <=
+  64; above 64 the wide design for K1 and K4 up to n = 80 and the shared
+  design for K2 and K3, and for every mode above 80.  `want` names K2's
+  and K3's design."""
+  assert LC._design(n, dtype, mode) == _for_mode(want, n, dtype, mode)
 
 
 @pytest.mark.parametrize('mode,name', [
@@ -236,13 +249,17 @@ def test_launch_checks_come_before_the_card(monkeypatch, mode, name):
     (62, torch.float64, 'wide'), (32, torch.float32, 'registers'),
     (33, torch.float64, 'wide'), (62, torch.float32, 'wide'),
     (64, torch.float32, 'wide'), (64, torch.float64, 'wide'),
-    (65, torch.float32, 'shared'), (65, torch.float64, 'shared')])
+    (65, torch.float32, 'shared'), (65, torch.float64, 'shared'),
+    (80, torch.float32, 'shared'), (80, torch.float64, 'shared'),
+    (81, torch.float32, 'shared'), (81, torch.float64, 'shared')])
 def test_launch_picks_k3_design(monkeypatch, n, dtype, want, mode, name):
   """`_launch` sends each kernel, K1 (cholesky_solve_factor), K2
   (cholesky_resolve_const), K3 (cholesky_solve) and K4 (cholesky_factor,
   no rhs), to the design `_design` names: the register design at n <= 32,
-  the wide one at 32 < n <= 64 and the shared-memory one above (meta
-  tensors, a stub C entry per design, no card)."""
+  the wide one at 32 < n <= 64 (K1 and K4 up to 80) and the shared-memory
+  one above (meta tensors, a stub C entry per design, no card).  `want`
+  names K2's and K3's design."""
+  want = _for_mode(want, n, dtype, mode)
   called = []
   fns = {d: (lambda *args, d=d: called.append((d, args[0], args[-1])) or 0)
          for d in ('registers', 'wide', 'shared')}
@@ -283,7 +300,8 @@ def test_wide_design_checks_its_shared_memory_first(monkeypatch, mode, name,
   stage lies in its slots).  A block takes exactly two matrices (kWideGroups); were two
   over the 227 KB a block may use, `_launch` raises before any build or
   card call (meta tensors; the limit lowered to just under two matrices),
-  and it refuses the wide design where it has no kernel (n > 64)."""
+  and it refuses the wide design where it has no kernel (n > 80 for K1
+  and K4, n > 64 for K2 and K3)."""
   n, elem = 62, torch.empty((), dtype=dtype).element_size()
   cols = 64 * (64 + 16 // elem) * elem
   stage = ((62 * 62 + 64) * elem + 15) // 16 * 16
@@ -304,10 +322,12 @@ def test_wide_design_checks_its_shared_memory_first(monkeypatch, mode, name,
   with pytest.raises(ValueError, match='shared memory'):
     LC._launch(mode, name, h, g,
                want_factor=mode in (LC._MODE_SOLVE_FACTOR, LC._MODE_FACTOR))
+  past = 81 if mode in (_K1, _K4) else 65
   with pytest.raises(ValueError, match='no wide design'):
-    LC._launch(mode, name, torch.empty(1, 65, 65, dtype=dtype, device='meta'),
+    LC._launch(mode, name,
+               torch.empty(1, past, past, dtype=dtype, device='meta'),
                None if factor else
-               torch.empty(1, 65, dtype=dtype, device='meta'), design='wide')
+               torch.empty(1, past, dtype=dtype, device='meta'), design='wide')
 
 
 @pytest.mark.parametrize('mode', [_K1, _K2, _K3, _K4])
@@ -321,3 +341,48 @@ def test_wide_design_fits_two_groups_at_n64(mode, dtype):
   assert LC._PER_BLOCK['wide'] == 2
   assert 2 * per_matrix <= LC._MAX_SMEM
   assert LC._design(64, dtype, mode) == 'wide'
+
+
+@pytest.mark.parametrize('mode,name', [
+    (LC._MODE_SOLVE_FACTOR, 'cholesky_solve_factor'),
+    (LC._MODE_FACTOR, 'cholesky_factor')])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_wide_design_at_n80_checks_its_shared_memory_first(monkeypatch, mode,
+                                                           name, dtype):
+  """At 64 < n <= 80 (K1 and K4, three warps a matrix) the shared memory
+  per matrix mirrors wide_group_smem_bytes at kRows = 80: the mbarrier,
+  80 column slots of 80 elements and 16 bytes, x of warps 1 and 2 (64
+  elements) and the (n, n) stage with 80 elements of slack; `_launch`
+  raises before any build or card call were two matrices over the limit
+  (meta tensors; the limit lowered to just under two matrices)."""
+  n, elem = 80, torch.empty((), dtype=dtype).element_size()
+  want = (16 + 80 * (80 + 16 // elem) * elem + 64 * elem +
+          ((80 * 80 + 80) * elem + 15) // 16 * 16)
+  assert LC._matrix_smem_bytes(n, elem, 'wide', mode) == want
+  assert want % 16 == 0
+
+  def no_build(*_):
+    raise AssertionError('the checks should have raised before a build')
+  monkeypatch.setattr(LC.cuda_build, 'build_all', no_build)
+  monkeypatch.setattr(LC, '_fns', {})
+  monkeypatch.setattr(LC, '_MAX_SMEM', 2 * want - 1)
+  h = torch.empty(4, n, n, dtype=dtype, device='meta')
+  g = (None if mode == LC._MODE_FACTOR
+       else torch.empty(4, n, dtype=dtype, device='meta'))
+  with pytest.raises(ValueError, match='shared memory'):
+    LC._launch(mode, name, h, g, want_factor=True)
+
+
+@pytest.mark.parametrize('mode', [_K1, _K4])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_wide_design_fits_two_groups_at_n80(mode, dtype):
+  """At n = 80, the largest n of K1's and K4's wide design, two matrices
+  (kWideGroups) of three warps fit in the 227 KB a block may use, in both
+  types (float64: 104,848 bytes a matrix): `_launch` takes the wide
+  design there with its two groups."""
+  elem = torch.empty((), dtype=dtype).element_size()
+  per_matrix = LC._matrix_smem_bytes(80, elem, 'wide', mode)
+  assert LC._PER_BLOCK['wide'] == 2
+  assert 2 * per_matrix <= LC._MAX_SMEM
+  assert LC._design(80, dtype, mode) == 'wide'
+  assert LC._design(81, dtype, mode) == 'shared'
