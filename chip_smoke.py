@@ -48,9 +48,10 @@ non-zero otherwise, and on any failed check.  Phases, one JSON line each:
      against the port on the CPU in float64.
   3b. planner_per_candidate: one stream's solve with batched_rollouts=False
      (256 samples x 2 CEM iterations, each candidate through the
-     per-environment step_n): wall time of each solve after a warm-up,
-     120 K1 + 120 K2 launches per solve, rollout_return of 8 candidates
-     held against the port on the CPU in float64.
+     per-environment step_n): wall time of each of 2 solves after a
+     warm-up (cut from 3, `reduced`), 120 K1 + 120 K2 launches per
+     solve, rollout_return of 8 candidates held against the port on the
+     CPU in float64.
   3c. sharded: sharded_solve_batch at the bench configuration on a world
      of one NCCL rank (FileStore, no TCP port), a warm-up and 2 timed
      calls, each bit-equal to solve_batch from the same generator seed
@@ -82,15 +83,14 @@ non-zero otherwise, and on any failed check.  Phases, one JSON line each:
      turns with the shared design, beside its bound (one triangle, and
      n^2 in `bound_square_ms`), its plain version and the library call.
      Then `size_n80`: the same at (1024, 80, 80), the top of the JAX
-     package's Pallas range, for K1-K4: K1 and K4 run the wide design's
+     package's Pallas range, for K1-K4: each runs the wide design's
      80-row layout there (three warps a matrix; checked from the
-     profiled kernel names) and are timed in turns with the shared
-     design, K2 and K3 run the shared design and are each timed alone
-     (two complete profiler windows).
+     profiled kernel names) and is timed in turns with the shared
+     design.
   8. closed_loop: scripts/eval_closed_loop_batch.py's configuration (256
      samples, 2 iterations, horizon 10, 4 knots, the task's 5 substeps,
      refactor every 4, its keep-in-hand shaping) on 4 goals from reset
-     for at most 5 control steps (cut from 10, `reduced`): solve_batch
+     for at most 3 control steps (cut from 10, `reduced`): solve_batch
      over all goals, then
      env.step; finished episodes frozen.  Median goal distance at the
      start and the end, the episodes that ended, wall per control step,
@@ -239,12 +239,13 @@ hold on N seeds (PIXEL_LIMITS' readings: the card and the CPU float32
 port sound; hinges moved by 0.01 rad and TF32 products faulted), or the
 renderer's absence.
 
---phase-split [CASES] runs the probe and then only the split of K1's and
-K4's time at (1024, n, n) float32 into the load, the pivot chain and the
-rest (the factor's store; K1's substitutions), from a build of the
-Cholesky sources with DEX_PHASE_CLOCKS, whose warps stamp clock64() at
-each boundary; CASES is a comma list of shared80, wide62 and wide80
-(default all).
+--phase-split [CASES] runs the probe and then only the split of K1-K4's
+time at (1024, n, n) float32 into the load, the pivot chain (K2: the
+forward substitution) and the rest (the factor's store; K1's and K3's
+substitutions; K2's back substitution), from a build of the Cholesky
+sources with DEX_PHASE_CLOCKS, whose warps stamp clock64() at each
+boundary; CASES is a comma list of shared80, wide62 and wide80 (default
+all).
 """
 
 from __future__ import annotations
@@ -277,14 +278,15 @@ SAMPLES = 256
 ITERATIONS = 2
 SOLVES = 5
 # Per-candidate planner (batched_rollouts=False): one stream, timed over
-# PC_SOLVES solves after one warm-up solve.
-PC_SOLVES = 3
+# PC_SOLVES solves after one warm-up solve (cut from PC_SOLVES_BEFORE to
+# keep the script inside its limit on a slow host).
+PC_SOLVES = 2
+PC_SOLVES_BEFORE = 3
 # The juggle model's nv (ROADMAP §A.3), where K1 and K2 leave the register
 # design.
 JUGGLE_NV = 62
 # The top of the JAX package's Pallas range (linalg_pallas._max_pallas_n):
-# K1 and K4 run the wide design's 80-row layout there, K2 and K3 (wide up
-# to n = 64) the shared design.
+# K1-K4 run the wide design's 80-row layout there.
 N_TOP = 80
 # --phase-split's cases: label -> (design, n).
 SPLIT_CASES = {'shared80': ('shared', N_TOP), 'wide62': ('wide', JUGGLE_NV),
@@ -298,7 +300,8 @@ ENV_CHECKED = 8
 # EVAL_CLOSED_LOOP_r05.json records it (plan_substeps None: the task's 5;
 # refactor every 4), with its keep-in-hand shaping (:66-76).  The default
 # phase runs CL_GOALS goals for at most CL_STEPS control steps (cut from
-# 10 to 5 to keep the script inside its limit as phases were added);
+# 10 to 5, then to 3, to keep the script inside its limit as phases were
+# added and on a slow host);
 # --closed-loop SEED runs the bar: BAR_GOALS goals, up to BAR_STEPS.
 CLOSED_LOOP = dict(samples=256, horizon=10, knots=4, temperature=0.0,
                    noise=0.2, iterations=2, noise_decay=0.5,
@@ -308,7 +311,7 @@ CLOSED_LOOP = dict(samples=256, horizon=10, knots=4, temperature=0.0,
 SHAPING = dict(horiz=300.0, drop=2000.0, margin=0.035, vel=0.0)
 SPAWN_CENTER = (0.0, -0.13, 0.16)
 CL_GOALS = 4
-CL_STEPS = 5
+CL_STEPS = 3
 CL_STEPS_BEFORE = 10
 BAR_GOALS = 32
 BAR_STEPS = 300
@@ -592,13 +595,13 @@ def phase_probe(torch, pkg, smi):
   ptxas = {name: [ln.strip() for ln in log.splitlines()
                   if 'registers' in ln or 'spill' in ln][:12]
            for name, log in logs.items()}
-  # The register design's eight kernels and the wide design's twelve
-  # (K1-K4 at 64 rows, K1 and K4 at 80, in float32 and float64 each):
-  # none may spill.
+  # The register design's eight kernels and the wide design's sixteen
+  # (K1-K4 at 64 rows and at 80, in float32 and float64 each): none may
+  # spill.
   regs = _ptxas_entries(logs.get('cholesky_regs', ''), 'cholesky_regs_')
   check(len(regs) == 8, f'register-design kernels in the ptxas log: {regs}')
   wide = _ptxas_entries(logs.get('cholesky_wide', ''), 'cholesky_wide_')
-  check(len(wide) == 12, f'wide-design kernels in the ptxas log: {wide}')
+  check(len(wide) == 16, f'wide-design kernels in the ptxas log: {wide}')
   for label, v in (*regs.items(), *wide.items()):
     check(v.get('spill_stores') == 0 and v.get('spill_loads') == 0,
           f'{label} spills: {v}')
@@ -3331,13 +3334,11 @@ def _ran_design(names):
 
 def _wide_layout(names):
   """(rows, warps) of the wide design's kernel among profiled kernel
-  names (K1/K3/K4 from their template arguments, demangled or mangled;
-  K2 has the 64-row layout only), or None."""
+  names (from their template arguments, demangled or mangled), or
+  None."""
   for k in names:
-    if 'cholesky_wide_resolve' in k:
-      return (64, 2)
-    if 'cholesky_wide_solve' in k:
-      m = (re.search(r'<\w+, (\d+), (\d+),', k) or
+    if 'cholesky_wide_' in k:
+      m = (re.search(r'<\w+, (\d+), (\d+)[,>]', k) or
            re.search(r'I[fd]Li(\d+)ELi(\d+)E', k))
       return (int(m.group(1)), int(m.group(2))) if m else None
   return None
@@ -3636,18 +3637,16 @@ def phase_juggle_size(torch, pkg, dev, n=JUGGLE_NV):
   cholesky_resolve, cholesky_solve_factor and cholesky_solve entry points
   (one launch each), then for each kernel timed here its agreement with
   its plain version, the design that ran, its device time and
-  _timing_row's fields (with the bound counting n^2 beside it).  A kernel
-  that runs the wide design at n is timed in turns with the shared design
-  (_design_turns): K1, K2 and K4 at juggle's nv = 62 (K3 is timed on
-  juggle's own Hessians, `k3_task_sizes`), K1 and K4 at N_TOP = 80, the
-  top of the JAX package's Pallas range.  K2 and K3 run the shared design
-  at N_TOP, which is the previous design there, so each is timed alone
-  (_shared_alone).  Returns the rows and the entry points' launches."""
+  _timing_row's fields (with the bound counting n^2 beside it).  Each
+  kernel runs the wide design at n and is timed in turns with the shared
+  design (_design_turns): K1, K2 and K4 at juggle's nv = 62 (K3 is timed
+  on juggle's own Hessians there, `k3_task_sizes`), K1-K4 at N_TOP = 80,
+  the top of the JAX package's Pallas range.  Returns the rows and the
+  entry points' launches."""
   t_phase = time.perf_counter()
   lc = pkg['linalg_cuda']
-  # Every mode has the wide design (K3's range is the narrowest).
-  wide = n <= lc._WIDE_MAX_N[lc._MODE_SOLVE]
-  gen = torch.Generator().manual_seed(SEED + (5 if wide else 6))
+  juggle = n == JUGGLE_NV
+  gen = torch.Generator().manual_seed(SEED + (5 if juggle else 6))
   a = torch.randn(B_PLAN, n, n, generator=gen, dtype=torch.float64)
   h = ((a @ a.transpose(1, 2)) / n + torch.eye(n, dtype=torch.float64)).to(
       dev).float()
@@ -3705,23 +3704,21 @@ def phase_juggle_size(torch, pkg, dev, n=JUGGLE_NV):
           lambda: lc._launch(lc._MODE_FACTOR, 'cholesky_factor', h,
                              want_factor=True, design='shared'),
           lambda: torch.linalg.cholesky_ex(h), 'factor')}
-  if not wide:
+  if not juggle:
     kernels['cholesky_solve'] = (
         lc._MODE_SOLVE, lambda: lc.cholesky_solve(h, g),
-        lambda: lc.solve_plain(h, g), None,
+        lambda: lc.solve_plain(h, g),
+        lambda: lc._launch(lc._MODE_SOLVE, 'cholesky_solve', h, g,
+                           design='shared'),
         lambda: torch.cholesky_solve(g3, torch.linalg.cholesky_ex(h)[0]),
         'solve')
   out = {}
   for name, (mode, fn, plain, prev, lib, kind) in kernels.items():
-    if lc._design(n, torch.float32, mode) == 'wide':
-      ms, row = _design_turns(torch, lc, name, mode, n, fn, prev)
-    else:
-      ms, row = _shared_alone(torch, lc, name, mode, n, fn)
+    ms, row = _design_turns(torch, lc, name, mode, n, fn, prev)
     out[name] = {**row, 'ms': ms, 'kernel_ms': ms, **held(name, fn, plain),
                  **_timing_row(torch, fn, plain, lib, B_PLAN, n, kind),
                  'bound_square_ms': _bound(B_PLAN, n, 4, kind, True)[0]}
-    if 'previous_design_ms' in out[name]:
-      out[name]['ms_over_previous'] = ms / out[name]['previous_design_ms']
+    out[name]['ms_over_previous'] = ms / out[name]['previous_design_ms']
     out[name]['ms_over_library'] = ms / out[name]['library_ms']
   emit({'phase': 'juggle_size' if n == JUGGLE_NV else f'size_n{n}',
         'shape': [B_PLAN, n, n], 'dtype': 'float32',
@@ -3731,20 +3728,22 @@ def phase_juggle_size(torch, pkg, dev, n=JUGGLE_NV):
 
 
 def phase_split(torch, pkg, cases):
-  """Where K1's and K4's time goes at (B_PLAN, n, n) float32 on seeded SPD
-  matrices, for each case of SPLIT_CASES named in `cases`: the design's
-  source built with DEX_PHASE_CLOCKS (cuda_build.variant), whose every
-  warp stamps clock64() at entry, with its rows loaded, after its pivots
-  and at its end.  Per matrix (the stamps of one SM): load = the last
-  warp's 'loaded' less the first entry, pivots = the last 'pivots done'
-  less the last 'loaded', rest (the factor's store; K1's substitutions)
-  = the last end less the last 'pivots done', span = the last end less
-  the first entry.  Reported: each part's mean in cycles and its share of
-  the mean span, the time per call of the kernel as built for the port
-  and of the stamped one (_call_ms, 20 back-to-back calls: host time
-  included, so a kernel of a few tens of us reads the host's), and the
-  part of the former each share gives.  The stamped kernel's factor is
-  held to the plain version."""
+  """Where K1-K4's time goes at (B_PLAN, n, n) float32 on seeded SPD
+  matrices (K2 on their plain packed factors), for each case of
+  SPLIT_CASES named in `cases`: the design's source built with
+  DEX_PHASE_CLOCKS (cuda_build.variant), whose every warp stamps clock64()
+  at entry, with its rows loaded, after its pivots (K2: after the forward
+  substitution) and at its end.  Per matrix (the stamps of one SM): load =
+  the last warp's 'loaded' less the first entry, pivots = the last 'pivots
+  done' less the last 'loaded', rest (the factor's store; K1's and K3's
+  substitutions; K2's back substitution) = the last end less the last
+  'pivots done', span = the last end less the first entry.  Reported: each
+  part's mean in cycles and its share of the mean span, the time per call
+  of the kernel as built for the port and of the stamped one (_call_ms, 20
+  back-to-back calls: host time included, so a kernel of a few tens of us
+  reads the host's), and the part of the former each share gives.  The
+  stamped kernel's output (K1 and K4: the factor; K2 and K3: x) is held to
+  the plain version."""
   import ctypes
   t_phase = time.perf_counter()
   lc, cuda_build = pkg['linalg_cuda'], pkg['cuda_build']
@@ -3765,13 +3764,19 @@ def phase_split(torch, pkg, cases):
         dev).float()
     g = torch.randn(B_PLAN, n, generator=gen, dtype=torch.float64).to(
         dev).float()
+    fac_p = lc.factor_plain(h)
+    low = torch.tril(torch.ones(n, n, dtype=torch.bool, device=dev))
     warps = 1 if design == 'shared' else (2 if n <= 64 else 3)
     fn, set_clocks = entries[design]
     for mode, name in ((lc._MODE_SOLVE_FACTOR, 'cholesky_solve_factor'),
-                       (lc._MODE_FACTOR, 'cholesky_factor')):
-      rhs = mode == lc._MODE_SOLVE_FACTOR
+                       (lc._MODE_FACTOR, 'cholesky_factor'),
+                       (lc._MODE_SOLVE, 'cholesky_solve'),
+                       (lc._MODE_RESOLVE, 'cholesky_resolve_const')):
+      rhs = mode != lc._MODE_FACTOR
+      emits = mode in (lc._MODE_SOLVE_FACTOR, lc._MODE_FACTOR)
+      a_in = fac_p if mode == lc._MODE_RESOLVE else h
       x = torch.empty_like(g) if rhs else None
-      fac = torch.empty_like(h)
+      fac = torch.empty_like(h) if emits else None
       per_block = min(lc._PER_BLOCK[design], lc._MAX_SMEM //
                       lc._matrix_smem_bytes(n, 4, design, mode))
       clocks = torch.zeros(B_PLAN, 4, 4, dtype=torch.int64, device=dev)
@@ -3779,22 +3784,24 @@ def phase_split(torch, pkg, cases):
 
       def stamped():
         err = cuda_build.launch(
-            fn, dev, mode, 4, h.data_ptr(), g.data_ptr() if rhs else None,
-            x.data_ptr() if rhs else None, fac.data_ptr(), B_PLAN, n,
-            per_block)
+            fn, dev, mode, 4, a_in.data_ptr(), g.data_ptr() if rhs else None,
+            x.data_ptr() if rhs else None,
+            fac.data_ptr() if emits else None, B_PLAN, n, per_block)
         check(err == 0, f'{case} {name}: stamped launch failed ({err})')
 
       def built():
-        lc._launch(mode, name, h, g if rhs else None, want_factor=True,
+        lc._launch(mode, name, a_in, g if rhs else None, want_factor=emits,
                    design=design)
 
       stamped()
       torch.cuda.synchronize()
-      want = lc.factor_plain(h)
-      low = torch.tril(torch.ones(n, n, dtype=torch.bool, device=dev))
-      err = (fac - want)[:, low].abs().max().item()
-      check(err <= 1e-4 * want[:, low].abs().max().item(),
-            f'{case} {name}: stamped factor {err}')
+      if emits:
+        got, want = fac[:, low], fac_p[:, low]
+      else:
+        got, want = x, lc.resolve_plain(fac_p, g)
+      err = (got - want).abs().max().item()
+      check(err <= 1e-4 * want.abs().max().item(),
+            f'{case} {name}: stamped output {err}')
       c = clocks[:, :warps].double()
       entry, loaded = c[..., 0].amin(1), c[..., 1].amax(1)
       pivoted, end = c[..., 2].amax(1), c[..., 3].amax(1)
@@ -3814,22 +3821,6 @@ def phase_split(torch, pkg, cases):
   emit({'phase': 'phase_split', 'shape_b': B_PLAN, 'dtype': 'float32',
         'cases': out, 'phase_s': time.perf_counter() - t_phase})
   return out
-
-
-def _shared_alone(torch, lc, name, mode, n, fn):
-  """The device time of the wrapper `fn` where `_design` picks the shared
-  design: two windows of 100 calls whose 100 kernel records the
-  profiler held (checked against the launch counter), averaged.  Fails
-  unless the shared design ran.  Returns (ms, the row's design
-  fields)."""
-  windows = [_device_profile(torch, fn, 100, (lc.launches,))
-             for _ in range(2)]
-  ran = {_ran_design(names) for _, names in windows}
-  check(ran == {'shared'} == {lc._design(n, torch.float32, mode)},
-        f'{name} at n={n}: ran {ran}')
-  return (windows[0][0] + windows[1][0]) / 2, {
-      'design': 'shared', 'windows_ms': [w[0] for w in windows],
-      'profiler_records_per_window': 100}
 
 
 def _k24_holds(torch, lc, h, g, label):
@@ -4208,7 +4199,8 @@ def phase_planner_per_candidate(torch, pkg, bench_walls):
         'wall_vs_bench_call': (sum(walls) / len(walls)) / bench_per_stream,
         'launches_per_solve': per_call, 'kernels_vs_plain': kernel_checks,
         'best_return': pst.best_return.item(),
-        'returns_vs_cpu_f64_rel': rel})
+        'returns_vs_cpu_f64_rel': rel,
+        'reduced': [f'timed solves {PC_SOLVES_BEFORE} -> {PC_SOLVES}']})
 
 
 # Stages of one substep, as step_n_b reaches them through module attributes.
@@ -4348,7 +4340,7 @@ def main():
                            'PIXEL_LIMITS are set from)')
   parser.add_argument('--phase-split', nargs='?', const=','.join(SPLIT_CASES),
                       metavar='CASES',
-                      help='run only the split of K1 and K4 into load, '
+                      help='run only the split of K1-K4 into load, '
                            'pivots and rest for the comma-separated cases '
                            f'({", ".join(SPLIT_CASES)}; default all)')
   args = parser.parse_args()

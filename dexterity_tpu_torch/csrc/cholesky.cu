@@ -13,10 +13,9 @@
 // applies one rank-1 trailing update per pivot, each a warp-wide step
 // closed by __syncwarp(); the forward and back substitutions run one pivot
 // per step across the lanes.  Several warps (independent matrices) share a
-// block.  It serves K2 and K3 at n > 64 and K1 and K4 at n > 80, beyond
-// the register design of cholesky_regs.cu (n <= 32) and the wide design
-// of cholesky_wide.cu (n <= 64, K1 and K4 n <= 80); no model of the
-// repository reaches it.  At any n it stays the
+// block.  It serves every mode at n > 80, beyond the register design of
+// cholesky_regs.cu (n <= 32) and the wide design of cholesky_wide.cu
+// (n <= 80); no model of the repository reaches it.  At any n it stays the
 // yardstick a run times the other designs against, in turns
 // (linalg_cuda._launch(..., design='shared')).
 //
@@ -51,8 +50,9 @@ __device__ __forceinline__ double clamp_rsqrt(double x) {
 }
 
 // Cycle stamps of each matrix at entry, with the matrix loaded, after the
-// pivots and at its end: (batch, 4, 4) int64 (warp slot 0), in a build
-// with DEX_PHASE_CLOCKS defined only (chip_smoke.py --phase-split).
+// pivots (K2: after the forward substitution) and at its end: (batch, 4,
+// 4) int64 (warp slot 0), in a build with DEX_PHASE_CLOCKS defined only
+// (chip_smoke.py --phase-split).
 #ifdef DEX_PHASE_CLOCKS
 __device__ long long* g_phase_clocks;
 #define DEX_STAMP(mat, lane, i)                                            \
@@ -115,7 +115,7 @@ __global__ void cholesky_kernel(const T* __restrict__ a_in,
       __syncwarp();
     }
   }
-  DEX_STAMP(mat, lane, 2);
+  if (MODE != MODE_RESOLVE) DEX_STAMP(mat, lane, 2);
 
   if (MODE == MODE_SOLVE_FACTOR || MODE == MODE_FACTOR) {
     T* dst = fac_out + mat * (int64_t)n * n;
@@ -132,6 +132,7 @@ __global__ void cholesky_kernel(const T* __restrict__ a_in,
       if (lane == 0) y[k] = yk;
       __syncwarp();
     }
+    if (MODE == MODE_RESOLVE) DEX_STAMP(mat, lane, 2);
     // Back substitution L^T x = y; L^T[j, k] = a[k, j].
     T* x = x_out + mat * n;
     for (int k = n - 1; k >= 0; --k) {

@@ -39,24 +39,24 @@ suite's (4096, 62, 62) K3's FMAs set the bound instead.  Three designs
                unrolled with no branch; the main path (n = 30, float32),
                the environment step (n = 30) and `cholesky_factor` on their
                Hessians run it.
-  'wide'       `csrc/cholesky_wide.cu`: K1-K4 at 32 < n <= 64, two
-               warps per matrix, a row per thread in registers, one
-               64-thread named barrier per pivot (K1, K3, K4) or two per
-               solve (K2, substitutions blocked by warp); the juggle
-               environment's and the suite's K3 (n = 62) run it, and K2
-               wherever a refactoring Newton solve meets the juggle model.
-               K1 and K4 also at 64 < n <= 80, three warps per matrix (a
-               96-thread barrier for pivots 0-31, a 64-thread one for
-               32-63, the last warp alone after).
+  'wide'       `csrc/cholesky_wide.cu`: K1-K4 at 32 < n <= 80, a row per
+               thread in registers; two warps per matrix up to n = 64, one
+               64-thread named barrier per pivot (K1, K3, K4) or one per
+               block of 32 rows each way (K2, substitutions blocked by
+               warp); three warps per matrix at 64 < n <= 80 (a 96-thread
+               barrier for pivots 0-31, a 64-thread one for 32-63, the
+               last warp alone after).  The juggle environment's and the
+               suite's K3 (n = 62) run it, and K2 wherever a refactoring
+               Newton solve meets the juggle model.
   'shared'     `csrc/cholesky.cu`: one warp per matrix, the matrix in
-               shared memory, one __syncwarp() per pivot: K2 and K3
-               beyond n = 64, K1 and K4 beyond n = 80 (no model of the
-               repository reaches either), and the in-run yardstick at
-               any n (`_launch(..., design='shared')`).
+               shared memory, one __syncwarp() per pivot: every mode
+               beyond n = 80 (no model of the repository reaches it), and
+               the in-run yardstick at any n (`_launch(...,
+               design='shared')`).
 
-`_design(n, dtype, mode)` picks every kernel's design from the shape, type
-and mode alone (above n = 64 the mode decides between the wide and the
-shared design); no switch overrides it on the public wrappers.
+`_design(n, dtype, mode)` picks every kernel's design from the shape and
+type (the same rule for every mode); no switch overrides it on the public
+wrappers.
 `_launch(..., design=...)` runs any design at the inputs it takes, so a
 card run can time the shared design beside the one `_design` picks.
 
@@ -104,11 +104,10 @@ _MODE_FACTOR = 3
 # Largest n of the register design: one row per lane.  (Its code with two
 # rows per lane, n <= 64, spills K1 in both types; see cholesky_regs.cu.)
 _REG_MAX_N = 32
-# Largest n of the wide design, by mode: a row per thread over two warps
-# up to 64 (every mode), over three warps up to 80 (K1 and K4).  The
-# shared design has every mode at every n.
-_WIDE_MAX_N = {_MODE_SOLVE: 64, _MODE_SOLVE_FACTOR: 80, _MODE_RESOLVE: 64,
-               _MODE_FACTOR: 80}
+# Largest n of the wide design, every mode: a row per thread over two
+# warps up to 64, over three warps up to 80.  The shared design has every
+# mode at every n.
+_WIDE_MAX_N = 80
 
 # Shared memory one block may use on Hopper (227 KB).
 _MAX_SMEM = 232448
@@ -160,11 +159,12 @@ def build() -> dict:
 
 def _design(n: int, dtype: torch.dtype, mode: int) -> str:
   """The design kernel `mode` runs at (n, dtype): 'registers', 'wide' or
-  'shared'."""
+  'shared' (every mode alike)."""
+  del mode
   if dtype in (torch.float32, torch.float64):
     if 1 <= n <= _REG_MAX_N:
       return 'registers'
-    if _REG_MAX_N < n <= _WIDE_MAX_N[mode]:
+    if _REG_MAX_N < n <= _WIDE_MAX_N:
       return 'wide'
   return 'shared'
 
@@ -181,9 +181,15 @@ def _matrix_smem_bytes(n: int, elem_bytes: int, design: str,
     rows, warps = (64, 2) if n <= 64 else (80, 3)
     cols = (0 if mode == _MODE_RESOLVE
             else rows * (rows + 16 // elem_bytes) * elem_bytes)
+    last = rows - 32 * (warps - 1)  # the last warp's rows
+    deferred = (last * last * elem_bytes
+                if mode != _MODE_RESOLVE and rows > 64 and elem_bytes == 8
+                else 0)
+    # wide_stage_ld: K2's stage at an odd row stride at 80 rows.
+    ld = n | 1 if rows > 64 and mode == _MODE_RESOLVE else n
     stage = (0 if mode == _MODE_SOLVE
-             else ((n * n + rows) * elem_bytes + 15) // 16 * 16)
-    return 16 + cols + 32 * (warps - 1) * elem_bytes + stage
+             else ((n * ld + rows) * elem_bytes + 15) // 16 * 16)
+    return 16 + cols + 32 * (warps - 1) * elem_bytes + deferred + stage
   return (n * (n | 1) + n) * elem_bytes
 
 
@@ -230,7 +236,7 @@ def _launch(mode: int, name: str, a: torch.Tensor, g=None,
     design = _design(n, a.dtype, mode)
   elif design == 'registers' and not 1 <= n <= _REG_MAX_N:
     raise ValueError(f'{name}: no register design at n={n}, {a.dtype}')
-  elif design == 'wide' and not 1 <= n <= _WIDE_MAX_N[mode]:
+  elif design == 'wide' and not 1 <= n <= _WIDE_MAX_N:
     raise ValueError(f'{name}: no wide design at n={n}')
   elem = a.element_size()
   per_matrix = _matrix_smem_bytes(n, elem, design, mode)

@@ -95,8 +95,7 @@ def test_kernel_batch_shapes_and_odd_batch():
 
 # The sizes that cover the designs of K1/K2 and their boundaries: a row
 # per lane in registers (n <= 32), a row per thread over two warps
-# (n <= 64; K1 over three warps up to 80), the shared-memory design
-# beyond.
+# (n <= 64) and over three (up to 80), the shared-memory design beyond.
 _DESIGN_NS = [1, 17, 30, 31, 32, 33, 62, 64, 65, 80, 81, 96]
 
 
@@ -164,7 +163,7 @@ def test_register_and_shared_designs_agree(dtype):
 def test_design_picks_the_kernel_that_runs(n, dtype):
   """The kernel the card runs for K1, K2, K3 and K4 is the one `_design`
   names; above n = 64 the wide design's kernels are its 80-row
-  instances."""
+  instances, K2's and K3's too."""
   _cuda()
   from torch.profiler import ProfilerActivity, profile
   h, g = _spd(13, 8, n)
@@ -173,10 +172,8 @@ def test_design_picks_the_kernel_that_runs(n, dtype):
   want = {mode: LC._design(n, dtype, mode)
           for mode in (LC._MODE_SOLVE_FACTOR, LC._MODE_RESOLVE,
                        LC._MODE_SOLVE, LC._MODE_FACTOR)}
-  top = {LC._MODE_SOLVE_FACTOR: 80, LC._MODE_FACTOR: 80,
-         LC._MODE_RESOLVE: 64, LC._MODE_SOLVE: 64}
   assert want == {m: 'registers' if n <= 32 else
-                  'wide' if n <= top[m] else 'shared' for m in want}
+                  'wide' if n <= 80 else 'shared' for m in want}
   # A profiling pass has come back from the card without a kernel in it
   # (chip_smoke.py's _device_profile retries too): up to three passes.
   for _ in range(3):
@@ -196,10 +193,13 @@ def test_design_picks_the_kernel_that_runs(n, dtype):
          'shared': 'cholesky_kernel'}
   ran = sorted(d for name in names for d, t in tag.items() if t in name)
   assert ran == sorted(want.values()), names
-  # The layout's template arguments, demangled or mangled.
+  # The layout's template arguments, demangled or mangled, of every wide
+  # kernel (cholesky_wide_solve_factor and cholesky_wide_resolve).
   rows, warps = (80, 3) if n > 64 else (64, 2)
-  assert all(f'{rows}, {warps},' in name or f'Li{rows}ELi{warps}E' in name
-             for name in names if 'cholesky_wide_solve' in name), names
+  wide = [name for name in names if 'cholesky_wide_' in name]
+  assert len(wide) == sum(d == 'wide' for d in want.values()), names
+  assert all(f', {rows}, {warps}' in name or f'Li{rows}ELi{warps}E' in name
+             for name in wide), names
 
 
 @pytest.mark.cuda
@@ -272,9 +272,9 @@ def test_k4_register_and_shared_designs_agree(dtype):
   torch.testing.assert_close(fac['registers'], fac['shared'], **_TOL[dtype])
 
 
-# The wide design's sizes (32 < n <= 64; K1 and K4 up to 80) and the
-# first beyond each, at one matrix, a block that is not full, and the
-# suite's batch.
+# The wide design's sizes (32 < n <= 64 over two warps, up to 80 over
+# three) and the first beyond each layout, at one matrix, a block that is
+# not full, and the suite's batch.
 _WIDE_NS = [33, 48, 62, 63, 64, 65, 72, 80, 81]
 
 
@@ -284,17 +284,15 @@ _WIDE_NS = [33, 48, 62, 63, 64, 65, 72, 80, 81]
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 def test_k1_k3_match_plain_at_wide_sizes(dtype, n, b):
   """K1 (x and the packed factor's lower triangle) and K3, in the design
-  `_design` picks (K1 wide up to 80, K3 up to 64, shared beyond), against
-  their plain versions on the same card inputs."""
+  `_design` picks (wide up to 80, shared beyond), against their plain
+  versions on the same card inputs."""
   _cuda()
   h, g = _spd(19 + n, b, n)
   hc = torch.as_tensor(h, dtype=dtype, device='cuda')
   gc = torch.as_tensor(g, dtype=dtype, device='cuda')
   tol = _TOL[dtype]
-  assert LC._design(n, dtype, LC._MODE_SOLVE) == (
-      'wide' if n <= 64 else 'shared')
-  assert LC._design(n, dtype, LC._MODE_SOLVE_FACTOR) == (
-      'wide' if n <= 80 else 'shared')
+  for mode in (LC._MODE_SOLVE, LC._MODE_SOLVE_FACTOR):
+    assert LC._design(n, dtype, mode) == ('wide' if n <= 80 else 'shared')
   LC.reset_launches()
   x, fac = LC.cholesky_solve_factor(hc, gc)
   x3 = LC.cholesky_solve(hc, gc)
@@ -315,16 +313,16 @@ def test_k1_k3_match_plain_at_wide_sizes(dtype, n, b):
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 def test_k2_k4_match_plain_at_wide_sizes(dtype, n, b):
   """K4 (the packed factor's lower triangle) and K2 (on the plain
-  factor, and the K4 + K2 pair), in the design `_design` picks (K4 wide
-  up to 80, K2 up to 64, shared beyond), against their plain versions on
-  the same card inputs; K2 reads only the packed layout."""
+  factor, and the K4 + K2 pair), in the design `_design` picks (wide up
+  to 80, shared beyond), against their plain versions on the same card
+  inputs; K2 reads only the packed layout."""
   _cuda()
   h, g = _spd(29 + n, b, n)
   hc = torch.as_tensor(h, dtype=dtype, device='cuda')
   gc = torch.as_tensor(g, dtype=dtype, device='cuda')
   tol = _TOL[dtype]
-  for mode, top in ((LC._MODE_RESOLVE, 64), (LC._MODE_FACTOR, 80)):
-    assert LC._design(n, dtype, mode) == ('wide' if n <= top else 'shared')
+  for mode in (LC._MODE_RESOLVE, LC._MODE_FACTOR):
+    assert LC._design(n, dtype, mode) == ('wide' if n <= 80 else 'shared')
   LC.reset_launches()
   fac = LC.cholesky_factor(hc)
   fac_ref = LC.factor_plain(hc)
@@ -354,12 +352,11 @@ def _cond_tol(h, x_ref, eps):
 @pytest.mark.parametrize('n', [62, 80])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 def test_wide_and_shared_designs_agree(dtype, n):
-  """At juggle's n = 62 the wide design and the shared-memory design (the
-  in-run yardstick) give the same K1, K2 and K3 solutions and K1 and K4
-  factors, within 100 cond eps, and at n = 80 the same K1 solutions and
-  K1 and K4 factors (K2 and K3 have no wide design there); and every
-  packed factor, K1's or K4's of either design, resolved by each
-  design's K2 there is at n, gives K1's x."""
+  """At juggle's n = 62 and at n = 80 (the 80-row layout) the wide design
+  and the shared-memory design (the in-run yardstick) give the same K1,
+  K2 and K3 solutions and K1 and K4 factors, within 100 cond eps; and
+  every packed factor, K1's or K4's of either design, resolved by each
+  design's K2, gives K1's x."""
   _cuda()
   gen = torch.Generator().manual_seed(20 + n)
   a = torch.randn(1024, n, n, generator=gen, dtype=torch.float64)
@@ -371,19 +368,16 @@ def test_wide_and_shared_designs_agree(dtype, n):
   x64 = torch.linalg.solve(h.double(), g.double())
   tol = _cond_tol(h, x64, eps)
   low = torch.tril(torch.ones(n, n, dtype=torch.bool, device='cuda'))
-  k23 = n <= 64  # K2 and K3 have a wide design
   out, facs = {}, {}
   for design in ('wide', 'shared'):
     x1, fac = LC._launch(LC._MODE_SOLVE_FACTOR, 'cholesky_solve_factor', h,
                          g, want_factor=True, design=design)
     fac4 = LC._launch(LC._MODE_FACTOR, 'cholesky_factor', h,
                       want_factor=True, design=design)
-    out[design] = (x1,)
-    if k23:
-      x3 = LC._launch(LC._MODE_SOLVE, 'cholesky_solve', h, g, design=design)
-      x2 = LC._launch(LC._MODE_RESOLVE, 'cholesky_resolve_const', fac, g,
-                      design=design)
-      out[design] += (x3, x2)
+    x3 = LC._launch(LC._MODE_SOLVE, 'cholesky_solve', h, g, design=design)
+    x2 = LC._launch(LC._MODE_RESOLVE, 'cholesky_resolve_const', fac, g,
+                    design=design)
+    out[design] = (x1, x3, x2)
     facs[('K1', design)], facs[('K4', design)] = fac, fac4
   for got, want in zip(out['wide'], out['shared']):
     assert (got - want).abs().max().item() <= tol
@@ -391,9 +385,8 @@ def test_wide_and_shared_designs_agree(dtype, n):
   for fac in facs.values():
     assert ((fac - fac_s)[:, low].abs().max().item()
             <= 100 * eps * fac_s[:, low].abs().max().item() * n)
-  assert LC._design(n, dtype, LC._MODE_RESOLVE) == (
-      'wide' if k23 else 'shared')
-  for design in ('wide', 'shared') if k23 else ('shared',):
+  assert LC._design(n, dtype, LC._MODE_RESOLVE) == 'wide'
+  for design in ('wide', 'shared'):
     for fac in facs.values():
       x2 = LC._launch(LC._MODE_RESOLVE, 'cholesky_resolve_const', fac, g,
                       design=design)
@@ -403,9 +396,9 @@ def test_wide_and_shared_designs_agree(dtype, n):
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 def test_shared_design_at_the_top_of_the_pallas_range(dtype):
-  """At n = 80, the largest n of the JAX package's Pallas kernels, K1 and
-  K4 run the wide design (three warps a matrix) and K2 and K3 the shared
-  one; each is held against its plain version on the same card inputs
+  """At n = 80, the largest n of the JAX package's Pallas kernels, K1-K4
+  run the wide design (three warps a matrix; the shared one starts above
+  80); each is held against its plain version on the same card inputs
   within 100 cond eps of the solution's scale (the packed factors on
   their lower triangles, to 100 n eps of their max-abs), with one launch
   each through the entry points."""
@@ -417,10 +410,10 @@ def test_shared_design_at_the_top_of_the_pallas_range(dtype):
       'cuda', dtype)
   g = torch.randn(64, n, generator=gen, dtype=torch.float64).to(
       'cuda', dtype)
-  for mode, design in ((LC._MODE_SOLVE_FACTOR, 'wide'),
-                       (LC._MODE_RESOLVE, 'shared'),
-                       (LC._MODE_SOLVE, 'shared'), (LC._MODE_FACTOR, 'wide')):
-    assert LC._design(n, dtype, mode) == design
+  for mode in (LC._MODE_SOLVE_FACTOR, LC._MODE_RESOLVE, LC._MODE_SOLVE,
+               LC._MODE_FACTOR):
+    assert LC._design(n, dtype, mode) == 'wide'
+    assert LC._design(n + 1, dtype, mode) == 'shared'
   eps = torch.finfo(dtype).eps
   tol = _cond_tol(h, torch.linalg.solve(h.double(), g.double()), eps)
   low = torch.tril(torch.ones(n, n, dtype=torch.bool, device='cuda'))
@@ -485,7 +478,7 @@ def test_shared_design_above_the_wide_range(dtype):
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 def test_wide_design_on_a_rank_deficient_batch(dtype, n):
   """K1, K3, K4 and the K4 + K2 pair in the design `_design` picks (all
-  four wide at n = 62, K1 and K4 at n = 80) on SPD matrices with every
+  four wide, at n = 62 and at n = 80) on SPD matrices with every
   third dof's row and column zeroed: those pivots are exact zeros, the
   clamp gives 1e6 in kernel and plain version alike, and x and K1's and
   K4's factors agree with the plain versions on the kept and on the
@@ -502,8 +495,7 @@ def test_wide_design_on_a_rank_deficient_batch(dtype, n):
       'cuda', dtype)
   for mode in (LC._MODE_SOLVE_FACTOR, LC._MODE_RESOLVE, LC._MODE_SOLVE,
                LC._MODE_FACTOR):
-    assert LC._design(n, dtype, mode) == (
-        'wide' if n <= LC._WIDE_MAX_N[mode] else 'shared')
+    assert LC._design(n, dtype, mode) == 'wide'
   x, fac = LC.cholesky_solve_factor(h, g)
   x3 = LC.cholesky_solve(h, g)
   fac4 = LC.cholesky_factor(h)

@@ -47,8 +47,8 @@ def _t(x):
 
 
 # The last seven sit on the boundaries of the kernels' register design
-# (n <= 32, a row per lane) and of the wide design (n <= 64, a row per
-# thread over two warps; K1 and K4 up to 80 over three), at the juggle
+# (n <= 32, a row per lane) and of the wide design's layouts (a row per
+# thread over two warps up to n = 64, over three up to 80), at the juggle
 # model's n = 62, and at 80, the top of the JAX package's Pallas range.
 _SHAPES = [((7,), 10), ((3, 5), 8), ((4,), 30), ((2,), 1), ((2,), 32),
            ((2,), 33), ((2,), 64), ((2,), 62), ((2,), 65), ((2,), 80)]
@@ -176,35 +176,25 @@ _K1, _K2, _K3, _K4 = (LC._MODE_SOLVE_FACTOR, LC._MODE_RESOLVE, LC._MODE_SOLVE,
                       LC._MODE_FACTOR)
 
 
-def _for_mode(want, n, dtype, mode):
-  """K2's and K3's design `want` at (n, dtype), as K1 and K4 take it:
-  the wide design at 64 < n <= 80 (three warps a matrix) too."""
-  if (mode in (_K1, _K4) and dtype in (torch.float32, torch.float64) and
-      64 < n <= 80):
-    return 'wide'
-  return want
-
-
 @pytest.mark.parametrize('n,dtype,want', [
     (1, torch.float32, 'registers'), (30, torch.float32, 'registers'),
     (32, torch.float32, 'registers'), (33, torch.float32, 'wide'),
-    (64, torch.float32, 'wide'), (80, torch.float32, 'shared'),
+    (64, torch.float32, 'wide'), (80, torch.float32, 'wide'),
     (300, torch.float32, 'shared'), (1, torch.float64, 'registers'),
     (30, torch.float64, 'registers'), (32, torch.float64, 'registers'),
     (33, torch.float64, 'wide'), (64, torch.float64, 'wide'),
     (0, torch.float32, 'shared'), (30, torch.float16, 'shared'),
     (62, torch.float32, 'wide'), (62, torch.float64, 'wide'),
-    (65, torch.float32, 'shared'), (65, torch.float64, 'shared'),
-    (62, torch.float16, 'shared'), (80, torch.float64, 'shared'),
+    (65, torch.float32, 'wide'), (65, torch.float64, 'wide'),
+    (62, torch.float16, 'shared'), (80, torch.float64, 'wide'),
     (81, torch.float32, 'shared'), (81, torch.float64, 'shared')])
 @pytest.mark.parametrize('mode', [_K1, _K2, _K3, _K4])
 def test_design_rule(n, dtype, want, mode):
-  """Each kernel's design follows from (n, dtype, mode) alone: for every
-  mode the register design at n <= 32 and the wide design at 32 < n <=
-  64; above 64 the wide design for K1 and K4 up to n = 80 and the shared
-  design for K2 and K3, and for every mode above 80.  `want` names K2's
-  and K3's design."""
-  assert LC._design(n, dtype, mode) == _for_mode(want, n, dtype, mode)
+  """Each kernel's design follows from (n, dtype) alone, one rule for
+  every mode: the register design at n <= 32, the wide design at 32 < n
+  <= 80 (two warps a matrix up to 64, three above) and the shared design
+  above 80 or in another type."""
+  assert LC._design(n, dtype, mode) == want
 
 
 @pytest.mark.parametrize('mode,name', [
@@ -249,17 +239,15 @@ def test_launch_checks_come_before_the_card(monkeypatch, mode, name):
     (62, torch.float64, 'wide'), (32, torch.float32, 'registers'),
     (33, torch.float64, 'wide'), (62, torch.float32, 'wide'),
     (64, torch.float32, 'wide'), (64, torch.float64, 'wide'),
-    (65, torch.float32, 'shared'), (65, torch.float64, 'shared'),
-    (80, torch.float32, 'shared'), (80, torch.float64, 'shared'),
+    (65, torch.float32, 'wide'), (65, torch.float64, 'wide'),
+    (80, torch.float32, 'wide'), (80, torch.float64, 'wide'),
     (81, torch.float32, 'shared'), (81, torch.float64, 'shared')])
 def test_launch_picks_k3_design(monkeypatch, n, dtype, want, mode, name):
   """`_launch` sends each kernel, K1 (cholesky_solve_factor), K2
   (cholesky_resolve_const), K3 (cholesky_solve) and K4 (cholesky_factor,
   no rhs), to the design `_design` names: the register design at n <= 32,
-  the wide one at 32 < n <= 64 (K1 and K4 up to 80) and the shared-memory
-  one above (meta tensors, a stub C entry per design, no card).  `want`
-  names K2's and K3's design."""
-  want = _for_mode(want, n, dtype, mode)
+  the wide one at 32 < n <= 80 and the shared-memory one above (meta
+  tensors, a stub C entry per design, no card)."""
   called = []
   fns = {d: (lambda *args, d=d: called.append((d, args[0], args[-1])) or 0)
          for d in ('registers', 'wide', 'shared')}
@@ -300,8 +288,7 @@ def test_wide_design_checks_its_shared_memory_first(monkeypatch, mode, name,
   stage lies in its slots).  A block takes exactly two matrices (kWideGroups); were two
   over the 227 KB a block may use, `_launch` raises before any build or
   card call (meta tensors; the limit lowered to just under two matrices),
-  and it refuses the wide design where it has no kernel (n > 80 for K1
-  and K4, n > 64 for K2 and K3)."""
+  and it refuses the wide design where it has no kernel (n > 80)."""
   n, elem = 62, torch.empty((), dtype=dtype).element_size()
   cols = 64 * (64 + 16 // elem) * elem
   stage = ((62 * 62 + 64) * elem + 15) // 16 * 16
@@ -322,7 +309,7 @@ def test_wide_design_checks_its_shared_memory_first(monkeypatch, mode, name,
   with pytest.raises(ValueError, match='shared memory'):
     LC._launch(mode, name, h, g,
                want_factor=mode in (LC._MODE_SOLVE_FACTOR, LC._MODE_FACTOR))
-  past = 81 if mode in (_K1, _K4) else 65
+  past = 81
   with pytest.raises(ValueError, match='no wide design'):
     LC._launch(mode, name,
                torch.empty(1, past, past, dtype=dtype, device='meta'),
@@ -343,21 +330,38 @@ def test_wide_design_fits_two_groups_at_n64(mode, dtype):
   assert LC._design(64, dtype, mode) == 'wide'
 
 
+# Shared memory per matrix of the wide design at n = 80 (kRows = 80, three
+# warps), by (mode, element bytes): the mbarrier (16), 80 column slots of
+# 80 elements and 16 bytes (all but K2: 26,880 / 52,480), y or x of warps
+# 1 and 2 (64 elements: 256 / 512), in float64 the last warp's deferred
+# 16 x 16 block (all but K2: 2,048) and the (n, n) stage with 80 elements
+# of slack (all but K3, whose stage lies in its slots): dense for K1 and
+# K4 (25,920 / 51,840), at the odd row stride 81 for K2 (80 x 81 + 80
+# elements: 26,240 / 52,480).
+_N80_SMEM = {(_K1, 4): 16 + 26880 + 256 + 25920,
+             (_K1, 8): 16 + 52480 + 512 + 2048 + 51840,
+             (_K4, 4): 16 + 26880 + 256 + 25920,
+             (_K4, 8): 16 + 52480 + 512 + 2048 + 51840,
+             (_K3, 4): 16 + 26880 + 256,
+             (_K3, 8): 16 + 52480 + 512 + 2048,
+             (_K2, 4): 16 + 256 + 26240,
+             (_K2, 8): 16 + 512 + 52480}
+
+
 @pytest.mark.parametrize('mode,name', [
     (LC._MODE_SOLVE_FACTOR, 'cholesky_solve_factor'),
-    (LC._MODE_FACTOR, 'cholesky_factor')])
+    (LC._MODE_FACTOR, 'cholesky_factor'),
+    (LC._MODE_SOLVE, 'cholesky_solve'),
+    (LC._MODE_RESOLVE, 'cholesky_resolve_const')])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 def test_wide_design_at_n80_checks_its_shared_memory_first(monkeypatch, mode,
                                                            name, dtype):
-  """At 64 < n <= 80 (K1 and K4, three warps a matrix) the shared memory
-  per matrix mirrors wide_group_smem_bytes at kRows = 80: the mbarrier,
-  80 column slots of 80 elements and 16 bytes, x of warps 1 and 2 (64
-  elements) and the (n, n) stage with 80 elements of slack; `_launch`
+  """At 64 < n <= 80 (three warps a matrix) the shared memory per matrix
+  mirrors wide_group_smem_bytes at kRows = 80 (`_N80_SMEM`); `_launch`
   raises before any build or card call were two matrices over the limit
   (meta tensors; the limit lowered to just under two matrices)."""
   n, elem = 80, torch.empty((), dtype=dtype).element_size()
-  want = (16 + 80 * (80 + 16 // elem) * elem + 64 * elem +
-          ((80 * 80 + 80) * elem + 15) // 16 * 16)
+  want = _N80_SMEM[(mode, elem)]
   assert LC._matrix_smem_bytes(n, elem, 'wide', mode) == want
   assert want % 16 == 0
 
@@ -370,16 +374,18 @@ def test_wide_design_at_n80_checks_its_shared_memory_first(monkeypatch, mode,
   g = (None if mode == LC._MODE_FACTOR
        else torch.empty(4, n, dtype=dtype, device='meta'))
   with pytest.raises(ValueError, match='shared memory'):
-    LC._launch(mode, name, h, g, want_factor=True)
+    LC._launch(mode, name, h, g,
+               want_factor=mode in (LC._MODE_SOLVE_FACTOR, LC._MODE_FACTOR))
 
 
-@pytest.mark.parametrize('mode', [_K1, _K4])
+@pytest.mark.parametrize('mode', [_K1, _K2, _K3, _K4])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 def test_wide_design_fits_two_groups_at_n80(mode, dtype):
-  """At n = 80, the largest n of K1's and K4's wide design, two matrices
-  (kWideGroups) of three warps fit in the 227 KB a block may use, in both
-  types (float64: 104,848 bytes a matrix): `_launch` takes the wide
-  design there with its two groups."""
+  """At n = 80, the largest n of the wide design, two matrices
+  (kWideGroups) of three warps fit in the 227 KB a block may use, for
+  every mode and type (at most 106,896 bytes a matrix, K1 and K4 in
+  float64): `_launch` takes the wide design there with its two
+  groups."""
   elem = torch.empty((), dtype=dtype).element_size()
   per_matrix = LC._matrix_smem_bytes(80, elem, 'wide', mode)
   assert LC._PER_BLOCK['wide'] == 2
