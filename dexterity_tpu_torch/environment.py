@@ -39,7 +39,7 @@ from dexterity_tpu_torch import exception
 from dexterity_tpu_torch import task as task_lib
 from dexterity_tpu_torch.core import types as T
 from dexterity_tpu_torch.physics import step as physics_step
-from dexterity_tpu_torch.utils import specs, structs
+from dexterity_tpu_torch.utils import profiling, specs, structs
 
 _NEVER = 2 ** 31 - 1
 
@@ -242,25 +242,27 @@ class GoalEnvironment:
     """One control step of every environment in `state` with `action`
     (the batch shape + (nu,)); `gen` draws the new goals of environments
     that switch goal (needed only then).  Returns (EnvState, TimeStep)."""
-    tstate = state.task
-    data = state.data
-    goal, goal_ok = tstate.goal, tstate.goal_ok
-    # before_step: goal switching (reference task.py:154-165).
-    switch = (tstate.success_change_counter
-              > self.task.steps_before_changing_goal)
-    if (self.task.steps_before_changing_goal < _NEVER
-        and bool(switch.any())):
-      if gen is None:
-        raise ValueError('an environment switches goal: step needs a '
-                         'generator')
-      goal2, sub, ok2 = self._sample_goal(structs.take_rows(switch, data),
-                                          gen)
-      data = structs.put_rows(switch, data, sub)
-      goal = structs.put_rows(switch, goal, goal2)
-      goal_ok = structs.put_rows(switch, goal_ok, ok2)
-    action = torch.as_tensor(action, dtype=self.dtype, device=self.device)
-    return self._step_after_switch(state, action, switch, goal, data,
-                                   goal_ok)
+    with profiling.trace_annotation('env.step'):
+      tstate = state.task
+      data = state.data
+      goal, goal_ok = tstate.goal, tstate.goal_ok
+      # before_step: goal switching (reference task.py:154-165).
+      with profiling.trace_annotation('env.goal_switch'):
+        switch = (tstate.success_change_counter
+                  > self.task.steps_before_changing_goal)
+        if (self.task.steps_before_changing_goal < _NEVER
+            and bool(switch.any())):
+          if gen is None:
+            raise ValueError('an environment switches goal: step needs a '
+                             'generator')
+          goal2, sub, ok2 = self._sample_goal(structs.take_rows(switch, data),
+                                              gen)
+          data = structs.put_rows(switch, data, sub)
+          goal = structs.put_rows(switch, goal, goal2)
+          goal_ok = structs.put_rows(switch, goal_ok, ok2)
+      action = torch.as_tensor(action, dtype=self.dtype, device=self.device)
+      return self._step_after_switch(state, action, switch, goal, data,
+                                     goal_ok)
 
   step_batch = step
 
@@ -282,33 +284,34 @@ class GoalEnvironment:
     # refresh='full': failure_termination reads fresh contacts.
     data = physics_step.step_n(model, data, task.n_substeps)
 
-    # after_step (reference task.py:167-185).
-    gen = task.goal_generator
-    dist = gen.goal_distance(tstate.goal, gen.current_state(model, data))
-    success_now = (dist <= task.success_threshold).all(-1)
-    counter = torch.where(success_now, tstate.success_change_counter + 1,
-                          tstate.success_change_counter)
-    new_success = success_now & ~tstate.success_registered
-    successes = tstate.successes + new_success.to(torch.int32)
-    registered = tstate.success_registered | success_now
-    exceeded = tstate.exceeded_single_goal_time
-    if task.max_time_per_goal is not None:
-      exceeded = exceeded | (
-          ~success_now
-          & (data.time - tstate.solve_start_time > task.max_time_per_goal))
-    failure = task.failure_termination(model, data)
-    tstate = tstate.replace(
-        goal_distance=dist, success_change_counter=counter,
-        successes=successes, success_registered=registered,
-        exceeded_single_goal_time=exceeded, failure_termination=failure)
+    with profiling.trace_annotation('env.task'):
+      # after_step (reference task.py:167-185).
+      gen = task.goal_generator
+      dist = gen.goal_distance(tstate.goal, gen.current_state(model, data))
+      success_now = (dist <= task.success_threshold).all(-1)
+      counter = torch.where(success_now, tstate.success_change_counter + 1,
+                            tstate.success_change_counter)
+      new_success = success_now & ~tstate.success_registered
+      successes = tstate.successes + new_success.to(torch.int32)
+      registered = tstate.success_registered | success_now
+      exceeded = tstate.exceeded_single_goal_time
+      if task.max_time_per_goal is not None:
+        exceeded = exceeded | (
+            ~success_now
+            & (data.time - tstate.solve_start_time > task.max_time_per_goal))
+      failure = task.failure_termination(model, data)
+      tstate = tstate.replace(
+          goal_distance=dist, success_change_counter=counter,
+          successes=successes, success_registered=registered,
+          exceeded_single_goal_time=exceeded, failure_termination=failure)
 
-    # Termination, reward, discount (reference task.py:187-204).
-    solved = successes >= task.successes_needed
-    terminate = solved | exceeded | failure
-    discount = torch.where(solved & ~failure, 0.0, 1.0).to(self.dtype)
-    reward = torch.as_tensor(task.get_reward(model, data, tstate),
-                             dtype=self.dtype, device=self.device)
-    obs = self._observations(data, tstate, eff_state)
+      # Termination, reward, discount (reference task.py:187-204).
+      solved = successes >= task.successes_needed
+      terminate = solved | exceeded | failure
+      discount = torch.where(solved & ~failure, 0.0, 1.0).to(self.dtype)
+      reward = torch.as_tensor(task.get_reward(model, data, tstate),
+                               dtype=self.dtype, device=self.device)
+      obs = self._observations(data, tstate, eff_state)
     step_count = state.step_count + 1
     if self._step_limit is not None:
       terminate = terminate | (step_count >= self._step_limit)

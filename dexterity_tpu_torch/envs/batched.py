@@ -13,7 +13,7 @@ import torch
 
 from dexterity_tpu_torch import environment as env_lib
 from dexterity_tpu_torch.utils import metrics as metrics_lib
-from dexterity_tpu_torch.utils import structs
+from dexterity_tpu_torch.utils import profiling, structs
 
 
 class BatchedEnvironment:
@@ -30,11 +30,14 @@ class BatchedEnvironment:
     """Resets the done episodes in place: a new episode for each done row
     (goal sampling and the placement tries cost several steps' worth of
     physics, so the others are not reset and then discarded)."""
-    n = int(done.sum())
-    if n == 0:
-      return new_state
-    reset_state, _ = self.env.reset(gen, (n,))
-    return structs.put_rows(done, new_state, reset_state)
+    with profiling.trace_annotation('env.merge_resets'):
+      n = int(done.sum())
+      profiling.count('rows_reset', n)
+      if n == 0:
+        return new_state
+      with profiling.trace_annotation('env.reset'):
+        reset_state, _ = self.env.reset(gen, (n,))
+      return structs.put_rows(done, new_state, reset_state)
 
   def step(self, state, actions, gen: torch.Generator):
     """Steps all episodes; episodes that ended are reset in place.

@@ -34,6 +34,7 @@ from dexterity_tpu_torch.core.types import Contact, Data, GeomType, Model
 from dexterity_tpu_torch.core.types import collision_type, num_contact_points
 from dexterity_tpu_torch.physics import math as tmath
 from dexterity_tpu_torch.physics.collision import box_box, soa
+from dexterity_tpu_torch.utils import profiling
 
 _BIG = 1e10
 
@@ -408,17 +409,18 @@ def midphase_selinfo(model: Model, gpos, gmat, dtype):
   static per-slot payload `stat` (*B, 8, m) (sizes of both geoms, pair id,
   margin) from the CURRENT geom frames.  Returns a list over groups (None
   for uncapped groups)."""
-  tabs, _ = _group_tables(model, dtype)
-  all_planes = list(gpos) + list(gmat)
-  out = []
-  for tab in tabs:
-    if tab['m'] >= tab['n']:
-      out.append(None)
-      continue
-    sel = _midphase_select(tab, all_planes, dtype)
-    stat = tab['stat_t'][sel].transpose(-1, -2)          # (*B, 8, m)
-    out.append(dict(sel=sel, stat=stat))
-  return out
+  with profiling.trace_annotation('collision.midphase'):
+    tabs, _ = _group_tables(model, dtype)
+    all_planes = list(gpos) + list(gmat)
+    out = []
+    for tab in tabs:
+      if tab['m'] >= tab['n']:
+        out.append(None)
+        continue
+      sel = _midphase_select(tab, all_planes, dtype)
+      stat = tab['stat_t'][sel].transpose(-1, -2)          # (*B, 8, m)
+      out.append(dict(sel=sel, stat=stat))
+    return out
 
 
 def collide_group_planes(model: Model, gpos, gmat, dtype, selinfo=None):
@@ -433,63 +435,64 @@ def collide_group_planes(model: Model, gpos, gmat, dtype, selinfo=None):
   with keys dist/pos/frame/pair/margin, planes of shape (*B, k*m)
   (slot-major), in the fixed group order.
   """
-  tabs, total_rows = _group_tables(model, dtype)
-  all_planes = list(gpos) + list(gmat)
-  bshape = torch.broadcast_shapes(*(p.shape[:-1] for p in all_planes))
+  with profiling.trace_annotation('collision.narrowphase'):
+    tabs, total_rows = _group_tables(model, dtype)
+    all_planes = list(gpos) + list(gmat)
+    bshape = torch.broadcast_shapes(*(p.shape[:-1] for p in all_planes))
 
-  out = []
-  for gi, tab in enumerate(tabs):
-    m, k, n = tab['m'], tab['k'], tab['n']
-    if m < n:
-      if selinfo is not None:
-        sel, stat = selinfo[gi]['sel'], selinfo[gi]['stat']
+    out = []
+    for gi, tab in enumerate(tabs):
+      m, k, n = tab['m'], tab['k'], tab['n']
+      if m < n:
+        if selinfo is not None:
+          sel, stat = selinfo[gi]['sel'], selinfo[gi]['stat']
+        else:
+          sel = _midphase_select(tab, all_planes, dtype)
+          stat = tab['stat_t'][sel].transpose(-1, -2)
+
+        def side(gids_np, gids):
+          uniq = np.unique(gids_np)
+          if len(uniq) == 1:
+            # A side that is one geom (the free prop, the floor) broadcasts
+            # that geom's planes.
+            gc = int(uniq[0])
+            return tuple(p[..., gc:gc + 1].expand(bshape + (m,))
+                         for p in all_planes)
+          stack = torch.stack([p[..., gids] for p in all_planes], dim=-2)
+          return tuple(onehot_select(sel, stack).unbind(-2))
+
+        d1 = side(tab['g1_np'], tab['g1'])
+        d2 = side(tab['g2_np'], tab['g2'])
+        s1 = tuple(stat[..., c, :] for c in range(3))
+        s2 = tuple(stat[..., 3 + c, :] for c in range(3))
+        pid = torch.round(stat[..., 6, :]).to(torch.int64)
+        mar = stat[..., 7, :]
       else:
-        sel = _midphase_select(tab, all_planes, dtype)
-        stat = tab['stat_t'][sel].transpose(-1, -2)
+        d1 = tuple(p[..., tab['g1']] for p in all_planes)
+        d2 = tuple(p[..., tab['g2']] for p in all_planes)
+        s1, s2 = tab['s1'], tab['s2']
+        pid = tab['pair'].expand(bshape + (m,))
+        mar = tab['margin'].expand(bshape + (m,))
+      p1, m1_ = d1[0:3], d1[3:12]
+      p2, m2_ = d2[0:3], d2[3:12]
 
-      def side(gids_np, gids):
-        uniq = np.unique(gids_np)
-        if len(uniq) == 1:
-          # A side that is one geom (the free prop, the floor) broadcasts
-          # that geom's planes.
-          gc = int(uniq[0])
-          return tuple(p[..., gc:gc + 1].expand(bshape + (m,))
-                       for p in all_planes)
-        stack = torch.stack([p[..., gids] for p in all_planes], dim=-2)
-        return tuple(onehot_select(sel, stack).unbind(-2))
+      sfn, _ = soa.KERNELS[tab['key']]
+      d, p, nrm = sfn(p1, m1_, s1, p2, m2_, s2)            # (*B, k, m) planes
+      tt1, tt2 = _tangent_frame_soa(nrm)
 
-      d1 = side(tab['g1_np'], tab['g1'])
-      d2 = side(tab['g2_np'], tab['g2'])
-      s1 = tuple(stat[..., c, :] for c in range(3))
-      s2 = tuple(stat[..., 3 + c, :] for c in range(3))
-      pid = torch.round(stat[..., 6, :]).to(torch.int64)
-      mar = stat[..., 7, :]
-    else:
-      d1 = tuple(p[..., tab['g1']] for p in all_planes)
-      d2 = tuple(p[..., tab['g2']] for p in all_planes)
-      s1, s2 = tab['s1'], tab['s2']
-      pid = tab['pair'].expand(bshape + (m,))
-      mar = tab['margin'].expand(bshape + (m,))
-    p1, m1_ = d1[0:3], d1[3:12]
-    p2, m2_ = d2[0:3], d2[3:12]
+      def flat(x):
+        return x.expand(bshape + (k, m)).flatten(-2)
 
-    sfn, _ = soa.KERNELS[tab['key']]
-    d, p, nrm = sfn(p1, m1_, s1, p2, m2_, s2)            # (*B, k, m) planes
-    tt1, tt2 = _tangent_frame_soa(nrm)
-
-    def flat(x):
-      return x.expand(bshape + (k, m)).flatten(-2)
-
-    out.append(dict(
-        dist=flat(d),
-        pos=tuple(flat(c) for c in p),
-        frame=tuple(flat(c) for c in nrm + tt1 + tt2),
-        pair=torch.cat([pid] * k, dim=-1),
-        margin=torch.cat([mar] * k, dim=-1)))
-  if out:
-    assert sum(g['dist'].shape[-1] for g in out) == total_rows \
-        == num_contact_points(model)
-  return out
+      out.append(dict(
+          dist=flat(d),
+          pos=tuple(flat(c) for c in p),
+          frame=tuple(flat(c) for c in nrm + tt1 + tt2),
+          pair=torch.cat([pid] * k, dim=-1),
+          margin=torch.cat([mar] * k, dim=-1)))
+    if out:
+      assert sum(g['dist'].shape[-1] for g in out) == total_rows \
+          == num_contact_points(model)
+    return out
 
 
 def collide_planes(model: Model, gpos, gmat, dtype) -> Contact:

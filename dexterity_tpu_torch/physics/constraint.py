@@ -35,6 +35,7 @@ from dexterity_tpu_torch.core.types import Data, EqType, JointType, Model
 from dexterity_tpu_torch.physics import kinematics, linalg_cuda
 from dexterity_tpu_torch.physics import math as tmath
 from dexterity_tpu_torch.physics.collision import primitives
+from dexterity_tpu_torch.utils import profiling
 
 # Row-type codes used for cost shaping.
 _BILATERAL = 0
@@ -465,6 +466,10 @@ def _contact_parts(model: Model, data: Data, dtype, groups=None):
   sel = torch.sort(score, dim=-1, stable=True).indices[..., :k_sel]
   score_sel = torch.gather(score, -1, sel)
   active = score_sel < 0
+  # Counters of the traced run: the narrow phase's slots, and those the
+  # solve keeps as active contacts (counted only when the records are read).
+  profiling.count('slots', score.numel())
+  profiling.count('live', active, torch.count_nonzero)
   r = torch.clamp_max(score_sel, 0.0)
 
   selp = primitives.onehot_select(sel, payload)           # (B, 12, k)
@@ -851,117 +856,126 @@ def solve(model: Model, data: Data, qfrc_smooth: torch.Tensor,
   """Newton over block-structured rows, batch-leading.  The contacts come
   from `contact_groups` (the hot substep's narrow phase) or, when None,
   from data.contact."""
-  dtype = data.qpos.dtype
-  nv = model.nv
-  if model.opt.implicit_damping:
-    # Solve against M' = M + h·diag(damping): qacc is already damped.
-    m = data.qM + model.opt.timestep * torch.diag(
-        model.dof_damping.to(dtype))
-  else:
-    m = data.qM
-
-  def smooth_only():
-    qacc = linalg_cuda.cholesky_solve(m, qfrc_smooth)
-    return data.replace(qfrc_constraint=torch.zeros_like(qfrc_smooth),
-                        qacc_smooth=qacc, qacc=qacc)
-
-  if model.opt.disable_constraint:
-    return smooth_only()
-  blocks = assemble_blocks(model, data, contact_groups=contact_groups)
-  if not blocks:
-    return smooth_only()
-
-  def matvecs(v):
-    return tuple(_blk_matvec(b, v) for b in blocks)
-
-  def row_cost(xs):
-    return sum(_blk_cost(b, x) for b, x in zip(blocks, xs))
-
-  alphas = 2.0 ** -torch.arange(model.opt.ls_iterations, dtype=dtype,
-                                device=qfrc_smooth.device)
-  refac_every = model.opt.solver_refactor_every
-  eye = 1e-10 * torch.eye(nv, dtype=dtype, device=qfrc_smooth.device)
-
-  def hessian(fws):
-    return m + sum(_blk_hess(b, w, nv) for b, (_, w) in zip(blocks, fws))
-
-  def newton_iter(carry, fac):
-    """One (modified-)Newton iteration.  fac=None: factor the Hessian this
-    iteration; otherwise re-solve against the stale packed factor."""
-    a, xs, ma = carry
-    fws = [_blk_force_weight(b, x) for b, x in zip(blocks, xs)]
-    grad = (ma - qfrc_smooth
-            - sum(_blk_rmatvec(b, f) for b, (f, _) in zip(blocks, fws)))
-    if refac_every > 1:
-      if fac is None:
-        # Detached, as the JAX package stops its gradient: the packed
-        # factor is a preconditioner whose tangents vanish at the
-        # solver's fixed point (K1's rule drops dH as well).
-        sol, fac = linalg_cuda.cholesky_solve_factor(
-            (hessian(fws) + eye).detach(), grad)
-        delta = -sol
-      else:
-        delta = -linalg_cuda.cholesky_resolve_const(fac, grad)
+  with profiling.trace_annotation('constraint.solve'):
+    dtype = data.qpos.dtype
+    nv = model.nv
+    if model.opt.implicit_damping:
+      # Solve against M' = M + h·diag(damping): qacc is already damped.
+      m = data.qM + model.opt.timestep * torch.diag(
+          model.dof_damping.to(dtype))
     else:
-      delta = -linalg_cuda.cholesky_solve(hessian(fws) + eye, grad)
-    jds = matvecs(delta)
-    md = _mv(m, delta)
-    # cost(a + al·delta) = quad0 + al·lin + al²·quad2 + row_cost(x + al·jd)
-    quad0 = 0.5 * _dot(a, ma) - _dot(a, qfrc_smooth)
-    lin = _dot(delta, ma) - _dot(delta, qfrc_smooth)
-    quad2 = 0.5 * _dot(delta, md)
-    c0 = quad0 + row_cost(xs)
-    costs = (quad0[..., None] + alphas * lin[..., None]
-             + alphas * alphas * quad2[..., None]
-             + row_cost(tuple(x.unsqueeze(-2) + alphas[:, None]
-                              * jd.unsqueeze(-2)
-                              for x, jd in zip(xs, jds))))
-    # argmin with first-occurrence ties (the largest alpha).
-    cmin = torch.amin(costs, dim=-1)
-    is_min = costs == cmin[..., None]
-    first = is_min & (torch.cumsum(is_min.to(torch.int32), dim=-1) == 1)
-    step = torch.where(cmin < c0,
-                       torch.sum(torch.where(first, alphas, 0.0), dim=-1),
-                       torch.zeros_like(cmin))
-    new_xs = tuple(x + step[..., None] * jd for x, jd in zip(xs, jds))
-    return (a + step[..., None] * delta, new_xs,
-            ma + step[..., None] * md), fac
+      m = data.qM
 
-  # Warm start from the previous step's qacc when it is cheaper than zero.
-  warm = data.qacc
-  xs_warm = tuple(mv - b.aref for mv, b in zip(matvecs(warm), blocks))
-  ma_warm = _mv(m, warm)
-  xs_zero = tuple(-b.aref for b in blocks)
-  c_warm = (0.5 * _dot(warm, ma_warm) - _dot(warm, qfrc_smooth)
-            + row_cost(xs_warm))
-  c_zero = row_cost(xs_zero)
-  use_warm = (c_warm < c_zero)[..., None]
-  carry = (torch.where(use_warm, warm, torch.zeros_like(warm)),
-           tuple(torch.where(use_warm, xw, xz)
-                 for xw, xz in zip(xs_warm, xs_zero)),
-           torch.where(use_warm, ma_warm, torch.zeros_like(ma_warm)))
-  # The refactor schedule is unrolled: iteration `it` factors when
-  # it % refac_every == 0 and re-solves against the stale factor otherwise.
-  fac = None
-  for it in range(model.opt.solver_iterations):
-    if it % refac_every == 0:
+    def smooth_only():
+      qacc = linalg_cuda.cholesky_solve(m, qfrc_smooth)
+      return data.replace(qfrc_constraint=torch.zeros_like(qfrc_smooth),
+                          qacc_smooth=qacc, qacc=qacc)
+
+    if model.opt.disable_constraint:
+      return smooth_only()
+    with profiling.trace_annotation('constraint.assemble'):
+      blocks = assemble_blocks(model, data, contact_groups=contact_groups)
+    if not blocks:
+      return smooth_only()
+
+    def matvecs(v):
+      return tuple(_blk_matvec(b, v) for b in blocks)
+
+    def row_cost(xs):
+      return sum(_blk_cost(b, x) for b, x in zip(blocks, xs))
+
+    alphas = 2.0 ** -torch.arange(model.opt.ls_iterations, dtype=dtype,
+                                  device=qfrc_smooth.device)
+    refac_every = model.opt.solver_refactor_every
+    eye = 1e-10 * torch.eye(nv, dtype=dtype, device=qfrc_smooth.device)
+
+    def hessian(fws):
+      return m + sum(_blk_hess(b, w, nv) for b, (_, w) in zip(blocks, fws))
+
+    def newton_iter(carry, fac):
+      """One (modified-)Newton iteration.  fac=None: factor the Hessian this
+      iteration; otherwise re-solve against the stale packed factor."""
+      a, xs, ma = carry
+      fws = [_blk_force_weight(b, x) for b, x in zip(blocks, xs)]
+      grad = (ma - qfrc_smooth
+              - sum(_blk_rmatvec(b, f) for b, (f, _) in zip(blocks, fws)))
+      if refac_every > 1:
+        if fac is None:
+          # Detached, as the JAX package stops its gradient: the packed
+          # factor is a preconditioner whose tangents vanish at the
+          # solver's fixed point (K1's rule drops dH as well).
+          sol, fac = linalg_cuda.cholesky_solve_factor(
+              (hessian(fws) + eye).detach(), grad)
+          delta = -sol
+        else:
+          delta = -linalg_cuda.cholesky_resolve_const(fac, grad)
+      else:
+        delta = -linalg_cuda.cholesky_solve(hessian(fws) + eye, grad)
+      jds = matvecs(delta)
+      md = _mv(m, delta)
+      # cost(a + al·delta) = quad0 + al·lin + al²·quad2 + row_cost(x + al·jd)
+      quad0 = 0.5 * _dot(a, ma) - _dot(a, qfrc_smooth)
+      lin = _dot(delta, ma) - _dot(delta, qfrc_smooth)
+      quad2 = 0.5 * _dot(delta, md)
+      c0 = quad0 + row_cost(xs)
+      costs = (quad0[..., None] + alphas * lin[..., None]
+               + alphas * alphas * quad2[..., None]
+               + row_cost(tuple(x.unsqueeze(-2) + alphas[:, None]
+                                * jd.unsqueeze(-2)
+                                for x, jd in zip(xs, jds))))
+      # argmin with first-occurrence ties (the largest alpha).
+      cmin = torch.amin(costs, dim=-1)
+      is_min = costs == cmin[..., None]
+      first = is_min & (torch.cumsum(is_min.to(torch.int32), dim=-1) == 1)
+      step = torch.where(cmin < c0,
+                         torch.sum(torch.where(first, alphas, 0.0), dim=-1),
+                         torch.zeros_like(cmin))
+      # step is 0 or one of the alphas: a row at 0 repeats the same
+      # arithmetic in every later iteration.
+      profiling.count('row_iters', step.numel())
+      profiling.count('moved', step, torch.count_nonzero)
+      new_xs = tuple(x + step[..., None] * jd for x, jd in zip(xs, jds))
+      return (a + step[..., None] * delta, new_xs,
+              ma + step[..., None] * md), fac
+
+    with profiling.trace_annotation('constraint.newton'):
+      # Warm start from the previous step's qacc when it is cheaper than
+      # zero.
+      warm = data.qacc
+      xs_warm = tuple(mv - b.aref for mv, b in zip(matvecs(warm), blocks))
+      ma_warm = _mv(m, warm)
+      xs_zero = tuple(-b.aref for b in blocks)
+      c_warm = (0.5 * _dot(warm, ma_warm) - _dot(warm, qfrc_smooth)
+                + row_cost(xs_warm))
+      c_zero = row_cost(xs_zero)
+      use_warm = (c_warm < c_zero)[..., None]
+      carry = (torch.where(use_warm, warm, torch.zeros_like(warm)),
+               tuple(torch.where(use_warm, xw, xz)
+                     for xw, xz in zip(xs_warm, xs_zero)),
+               torch.where(use_warm, ma_warm, torch.zeros_like(ma_warm)))
+      # The refactor schedule is unrolled: iteration `it` factors when
+      # it % refac_every == 0 and re-solves against the stale factor
+      # otherwise.
       fac = None
-    carry, fac = newton_iter(carry, fac)
-  a, xs, _ = carry
+      for it in range(model.opt.solver_iterations):
+        if it % refac_every == 0:
+          fac = None
+        carry, fac = newton_iter(carry, fac)
+    a, xs, _ = carry
 
-  fs = [_blk_force_weight(b, x)[0] for b, x in zip(blocks, xs)]
-  qfrc_constraint = sum(_blk_rmatvec(b, f) for b, f in zip(blocks, fs))
-  # Joint-transmitted share (limits, frictionloss, JOINT/TENDON
-  # equalities): what a joint torque sensor sees; contacts and
-  # CONNECT/WELD wrenches are external.
-  axis_terms = []
-  for b, f in zip(blocks, fs):
-    if isinstance(b, StaticBlock):
-      axis_terms.append(_blk_rmatvec(b, f))
-    elif isinstance(b, DenseBlock) and b.trans.any():
-      axis_terms.append(_blk_rmatvec(
-          b, f * torch.as_tensor(b.trans, dtype=dtype, device=f.device)))
-  qfrc_constraint_axis = (sum(axis_terms) if axis_terms
-                          else torch.zeros_like(qfrc_smooth))
-  return data.replace(qacc=a, qfrc_constraint=qfrc_constraint,
-                      qfrc_constraint_axis=qfrc_constraint_axis)
+    fs = [_blk_force_weight(b, x)[0] for b, x in zip(blocks, xs)]
+    qfrc_constraint = sum(_blk_rmatvec(b, f) for b, f in zip(blocks, fs))
+    # Joint-transmitted share (limits, frictionloss, JOINT/TENDON
+    # equalities): what a joint torque sensor sees; contacts and
+    # CONNECT/WELD wrenches are external.
+    axis_terms = []
+    for b, f in zip(blocks, fs):
+      if isinstance(b, StaticBlock):
+        axis_terms.append(_blk_rmatvec(b, f))
+      elif isinstance(b, DenseBlock) and b.trans.any():
+        axis_terms.append(_blk_rmatvec(
+            b, f * torch.as_tensor(b.trans, dtype=dtype, device=f.device)))
+    qfrc_constraint_axis = (sum(axis_terms) if axis_terms
+                            else torch.zeros_like(qfrc_smooth))
+    return data.replace(qacc=a, qfrc_constraint=qfrc_constraint,
+                        qfrc_constraint_axis=qfrc_constraint_axis)

@@ -30,6 +30,7 @@ from dexterity_tpu_torch.core.types import Data, Model
 from dexterity_tpu_torch.physics import constraint as constraint_mod
 from dexterity_tpu_torch.physics import kinematics, smooth
 from dexterity_tpu_torch.physics.collision import narrowphase, primitives
+from dexterity_tpu_torch.utils import profiling
 
 
 def _one_batch_axis(fn):
@@ -96,24 +97,25 @@ def _precompute_planes(model: Model, qpos, qvel, mocap_pos, mocap_quat):
   With qpos (nq,) all outputs are per-env planes; with qpos (nq, B)
   (qvel and mocap batch-minor the same way) every output gains a
   trailing B."""
-  dtype = qpos.dtype
-  xpos_p, xquat_p, cdof6 = kinematics.body_poses_planes(
-      model, qpos, mocap_pos, mocap_quat)
-  gpos, gmat = kinematics.frame_planes(
-      xpos_p, xquat_p, model.index('geom_bodyid', model.geom_bodyid),
-      model.geom_pos, model.geom_quat, dtype)
-  body10, xipos3 = smooth.inertia_origin_planes(model, xpos_p, xquat_p)
-  qm = smooth.crb_planes(model, body10, cdof6)
-  qfrc_bias, _ = smooth.rne_planes(model, body10, cdof6, qvel)
-  if model.ntendon:
-    dof_qposadr = model.index('dof_qposadr', kinematics._dof_qposadr(model))
-    tm = model.tendon_moment.to(dtype)
-    ten_length = torch.tensordot(tm, qpos[dof_qposadr], 1)
-    ten_velocity = torch.tensordot(tm, qvel, 1)
-  else:
-    bshape = qpos.shape[1:]
-    ten_length = qpos.new_zeros((0,) + bshape)
-    ten_velocity = qpos.new_zeros((0,) + bshape)
+  with profiling.trace_annotation('physics.planes'):
+    dtype = qpos.dtype
+    xpos_p, xquat_p, cdof6 = kinematics.body_poses_planes(
+        model, qpos, mocap_pos, mocap_quat)
+    gpos, gmat = kinematics.frame_planes(
+        xpos_p, xquat_p, model.index('geom_bodyid', model.geom_bodyid),
+        model.geom_pos, model.geom_quat, dtype)
+    body10, xipos3 = smooth.inertia_origin_planes(model, xpos_p, xquat_p)
+    qm = smooth.crb_planes(model, body10, cdof6)
+    qfrc_bias, _ = smooth.rne_planes(model, body10, cdof6, qvel)
+    if model.ntendon:
+      dof_qposadr = model.index('dof_qposadr', kinematics._dof_qposadr(model))
+      tm = model.tendon_moment.to(dtype)
+      ten_length = torch.tensordot(tm, qpos[dof_qposadr], 1)
+      ten_velocity = torch.tensordot(tm, qvel, 1)
+    else:
+      bshape = qpos.shape[1:]
+      ten_length = qpos.new_zeros((0,) + bshape)
+      ten_velocity = qpos.new_zeros((0,) + bshape)
   return dict(xpos_p=xpos_p, xquat_p=xquat_p, cdof6=cdof6,
               gpos=gpos, gmat=gmat, xipos3=xipos3, qm=qm,
               qfrc_bias=qfrc_bias, ten_length=ten_length,
@@ -150,15 +152,17 @@ def _finish_step(model: Model, data: Data, pre: dict,
     updates.update(xpos=_major(pre['xpos_p']).transpose(-1, -2),
                    xquat=_major(pre['xquat_p']).transpose(-1, -2))
   data = data.replace(**updates)
-  data = smooth.actuation(model, data)
-  data = smooth.passive(model, data)
-  xfrc = smooth.xfrc_planes(model, pre['xipos3'], pre['cdof6'],
-                            _batch_minor(data.xfrc_applied))
+  with profiling.trace_annotation('physics.smooth'):
+    data = smooth.actuation(model, data)
+    data = smooth.passive(model, data)
+    xfrc = smooth.xfrc_planes(model, pre['xipos3'], pre['cdof6'],
+                              _batch_minor(data.xfrc_applied))
   qfrc_smooth = (data.qfrc_passive + data.qfrc_actuator + data.qfrc_applied
                  + _major(xfrc) - data.qfrc_bias)
   data = constraint_mod.solve(model, data, qfrc_smooth,
                               contact_groups=contact_groups)
-  return smooth.euler_from_smooth(model, data, qfrc_smooth)
+  with profiling.trace_annotation('physics.integrate'):
+    return smooth.euler_from_smooth(model, data, qfrc_smooth)
 
 
 def _planes_b(model: Model, data: Data) -> dict:
@@ -230,32 +234,34 @@ def step_n_b(model: Model, data: Data, n: int, refresh: str = 'full',
     raise ValueError(f'midphase={midphase!r}')
   if carry not in ('minimal', 'full'):
     raise ValueError(f'carry={carry!r}')
-  fields = _STEP_CARRY_MIN if carry == 'minimal' else _STEP_CARRY
-  base = data
+  with profiling.trace_annotation('physics.step_n'):
+    fields = _STEP_CARRY_MIN if carry == 'minimal' else _STEP_CARRY
+    base = data
 
-  def advance(d_new):
-    return base.replace(**{f: getattr(d_new, f) for f in fields})
+    def advance(d_new):
+      return base.replace(**{f: getattr(d_new, f) for f in fields})
 
-  selinfo = None
-  cur = data
-  start = 0
-  if midphase == 'per_call' and model.npair and n:
-    # The first substep's tree sweep doubles as the selection build.
-    pre0 = _planes_b(model, data)
-    gpos = tuple(_major(p) for p in pre0['gpos'])
-    gmat = tuple(_major(p) for p in pre0['gmat'])
-    selinfo = primitives.midphase_selinfo(model, gpos, gmat, data.qpos.dtype)
-    if all(si is None for si in selinfo):
-      selinfo = None
-    else:
-      cur = advance(_finish_step(model, data, pre0, selinfo=selinfo))
-      start = 1
-  for _ in range(start, n):
-    cur = advance(step_hot_b(model, cur, selinfo=selinfo))
-  if refresh == 'none':
-    return cur
-  cur = kinematics.fwd_position(model, cur)
-  if refresh == 'position':
-    return cur
-  cur = narrowphase.collision(model, cur)
-  return kinematics.fwd_velocity_kinematics(model, cur)
+    selinfo = None
+    cur = data
+    start = 0
+    if midphase == 'per_call' and model.npair and n:
+      # The first substep's tree sweep doubles as the selection build.
+      pre0 = _planes_b(model, data)
+      gpos = tuple(_major(p) for p in pre0['gpos'])
+      gmat = tuple(_major(p) for p in pre0['gmat'])
+      selinfo = primitives.midphase_selinfo(model, gpos, gmat, data.qpos.dtype)
+      if all(si is None for si in selinfo):
+        selinfo = None
+      else:
+        cur = advance(_finish_step(model, data, pre0, selinfo=selinfo))
+        start = 1
+    for _ in range(start, n):
+      cur = advance(step_hot_b(model, cur, selinfo=selinfo))
+    if refresh == 'none':
+      return cur
+    with profiling.trace_annotation('physics.refresh'):
+      cur = kinematics.fwd_position(model, cur)
+      if refresh == 'position':
+        return cur
+      cur = narrowphase.collision(model, cur)
+      return kinematics.fwd_velocity_kinematics(model, cur)

@@ -28,6 +28,7 @@ import torch
 from dexterity_tpu_torch.core import types as T
 from dexterity_tpu_torch.physics import step as physics_step
 from dexterity_tpu_torch.planners import common
+from dexterity_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -232,31 +233,32 @@ class PredictiveSampling:
     and the step where it first fires costs `failure_penalty`.  A row
     whose start qpos is NaN is dead from the start and returns 0, as in
     the reference."""
-    model = self.model
-    cfg = self.config
-    task = self.task
-    acts_t = actions.transpose(0, 1)                     # (H, M, nu)
-    # Position-level planning rewards never read the dynamics outputs:
-    # carry only the integrator state, rebuilding each control step's Data
-    # from the pre-rollout bdata.
-    minimal = task.plan_refresh in ('none', 'position')
-    fields = physics_step._STEP_CARRY_MIN
-    midphase = ('per_call' if cfg.plan_midphase_per_control_step
-                else 'per_substep')
-    carry = ({f: getattr(bdata, f) for f in fields} if minimal else bdata)
-    # A NaN start row is dead from step 0 (NaN != NaN).
-    alive = bdata.qpos[:, 0] == bdata.qpos[:, 0]
-    rewards = []
-    for action in acts_t:
-      d = bdata.replace(**carry) if minimal else carry
-      d = physics_step.step_n_b(
-          model, self._set_ctrl(d, action), self.n_plan_substeps,
-          refresh=task.plan_refresh, midphase=midphase,
-          carry='minimal' if minimal else 'full')
-      r, alive = self._reward(d, goals, alive)
-      rewards.append(r)
-      carry = {f: getattr(d, f) for f in fields} if minimal else d
-    return torch.stack(rewards).sum(0)
+    with profiling.trace_annotation('planner.rollout'):
+      model = self.model
+      cfg = self.config
+      task = self.task
+      acts_t = actions.transpose(0, 1)                     # (H, M, nu)
+      # Position-level planning rewards never read the dynamics outputs:
+      # carry only the integrator state, rebuilding each control step's Data
+      # from the pre-rollout bdata.
+      minimal = task.plan_refresh in ('none', 'position')
+      fields = physics_step._STEP_CARRY_MIN
+      midphase = ('per_call' if cfg.plan_midphase_per_control_step
+                  else 'per_substep')
+      carry = ({f: getattr(bdata, f) for f in fields} if minimal else bdata)
+      # A NaN start row is dead from step 0 (NaN != NaN).
+      alive = bdata.qpos[:, 0] == bdata.qpos[:, 0]
+      rewards = []
+      for action in acts_t:
+        d = bdata.replace(**carry) if minimal else carry
+        d = physics_step.step_n_b(
+            model, self._set_ctrl(d, action), self.n_plan_substeps,
+            refresh=task.plan_refresh, midphase=midphase,
+            carry='minimal' if minimal else 'full')
+        r, alive = self._reward(d, goals, alive)
+        rewards.append(r)
+        carry = {f: getattr(d, f) for f in fields} if minimal else d
+      return torch.stack(rewards).sum(0)
 
   def _sample_noise(self, gen: torch.Generator, n: int) -> torch.Tensor:
     """(n, H, nu) exploration noise from `gen`; spline-smoothed when
@@ -353,24 +355,26 @@ class PredictiveSampling:
     goals carry a leading G, pstates (G, H, nu) / (G,).  Each iteration
     draws the G streams' noise in one call, (G·(N-1), H, nu).  Returns
     (actions (G, nu), new PlannerState)."""
-    cfg = self.config
-    g = goals.shape[0]
-    best_seq = pstates.nominal                           # (G, H, nu)
-    best_ret = torch.full((g,), -float('inf'), dtype=self.dtype,
-                          device=self.device)
-    mult = 1.0
-    # The flattened rollout initial state and goals are the same in every
-    # iteration: built once.
-    bdata, goals_f = self._flatten_streams(data_b, goals)
-    for _ in range(max(cfg.iterations, 1)):
-      cands = self._candidates_batch(best_seq, gen, mult)
-      returns = self.rollout_returns_flat(
-          bdata, goals_f, cands.reshape((-1,) + cands.shape[2:]))
-      best_seq, best_ret = self._select_batch(cands,
-                                              returns.reshape(g, -1))
-      mult = mult * cfg.noise_decay
-    return best_seq[:, 0], PlannerState(nominal=_shift(best_seq),
-                                        best_return=best_ret)
+    with profiling.trace_annotation('planner.solve_batch'):
+      cfg = self.config
+      g = goals.shape[0]
+      best_seq = pstates.nominal                           # (G, H, nu)
+      best_ret = torch.full((g,), -float('inf'), dtype=self.dtype,
+                            device=self.device)
+      mult = 1.0
+      # The flattened rollout initial state and goals are the same in every
+      # iteration: built once.
+      bdata, goals_f = self._flatten_streams(data_b, goals)
+      for _ in range(max(cfg.iterations, 1)):
+        with profiling.trace_annotation('planner.iteration'):
+          cands = self._candidates_batch(best_seq, gen, mult)
+          returns = self.rollout_returns_flat(
+              bdata, goals_f, cands.reshape((-1,) + cands.shape[2:]))
+          best_seq, best_ret = self._select_batch(cands,
+                                                  returns.reshape(g, -1))
+        mult = mult * cfg.noise_decay
+      return best_seq[:, 0], PlannerState(nominal=_shift(best_seq),
+                                          best_return=best_ret)
 
   def action(self, env_state, pstate: PlannerState, gen: torch.Generator):
     """Convenience: plans from an environment state with `.data` and

@@ -34,6 +34,9 @@ EXCEPTIONS = {
         'JAX pytree registration; the port uses frozen dataclasses',
     ('utils/structs.py', 'static_field'):
         'JAX pytree registration of a static field; the port has no pytrees',
+    ('utils/profiling.py', 'Throughput'):
+        'read by no benchmark reader and no operator: the benchmark times '
+        "its own windows, and an operator reads the port's spans",
 }
 
 
